@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py
 
-Phases, each of which fails the run on error:
+Phases, each of which fails the run on error, each with its wall time:
   1. card and build: the card's name and power limit, torch/CUDA versions,
-     both CUDA kernels built with nvcc from csrc/ (ptxas report included);
+     the three CUDA kernels built with nvcc from csrc/, all at once
+     (ptxas report included);
   2. kernel vs plain PyTorch version on the card, at the shapes of the
-     main path, with median CUDA-event times, bounds and errors;
-  3. main path: one THC+WPU scoring pass (ScoringEngine, fused_eval) of
+     main paths, with CUDA-event times, bounds and errors: K1 (bottleneck
+     chain), K2 (heatmap post-process; its own device time beside the
+     wrapper's), K3 (training crop; beside it its copy variant and
+     grid_sample as the library yardstick);
+  3. scoring path: one THC+WPU scoring pass (ScoringEngine, fused_eval) of
      SimplePose-R50 at 256x192 over a synthetic video of 512 samples, in
      f32 parity mode and in bf16, with the launch counters reset before
      each pass and checked after it; outputs checked for shape and
      finiteness; warm samples/s and a torch.profiler breakdown of one warm
      pass; the first 32 samples' heatmaps and embeddings held against the
      same port run on the CPU;
-  4. a `{"kernels": [...]}` line, then the last line
+  4. training path: the AL round's retrain of the phase-3 model (RETRAIN
+     of configs/posetrack21/al_simple_posetrack.yaml: batch 120, AdamW,
+     3 epochs = 15 steps, every crop through K3, the counters reset
+     before and read after), a profile of one step, the WholeBodyAE
+     fine-tune (AETrainer) and an f32 rescoring pass on the new weights;
+     then one train step from the same weights on the card and on the CPU
+     (f32, and f64 as the exact step), compared;
+  5. a `{"kernels": [...]}` line, then the last line
      `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -43,14 +54,28 @@ R50_CHAINS = [(64, 48, 256, 64, 2), (32, 24, 512, 128, 3),
               (16, 12, 1024, 256, 5), (8, 6, 2048, 512, 2)]
 BATCH = 512
 HM_SHAPE = (BATCH, 17, 64, 48)
+VIDEO = dict(num_frames=64, num_persons=8, width=640, height=360)
+MODEL = dict(num_joints=17, num_layers=50, deconv_dim=(256, 256, 256))
+INPUT_SIZE = (256, 192)
+HM_SIZE = (64, 48)
+# RETRAIN, DATASET.TRAIN.AUG and AE of configs/posetrack21/
+# al_simple_posetrack.yaml
+RETRAIN = {"BATCH_SIZE": 120, "OPTIMIZER": "AdamW", "LR": 2.5e-4,
+           "WEIGHT_DECAY": 0.7, "LR_GAMMA": 0.99}
+AUG = dict(scale_factor=0.3, rot_factor=40.0, flip=False,
+           num_joints_half_body=8, prob_half_body=-1.0)
+AE_LR, AE_EPOCHS = 8e-5, 20
+RETRAIN_EPOCHS = 3
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps=10, warm=2):
-    """Median device time of fn() in ms (CUDA events, after warm-up)."""
+def cuda_ms(fn, reps=10, warm=2, inner=1):
+    """Median device time of one fn() call in ms: CUDA events around
+    `inner` back-to-back calls (so that a short kernel is not timed at the
+    host's enqueue rate), divided by `inner`, after warm-up."""
     import torch
     for _ in range(warm):
         fn()
@@ -60,10 +85,11 @@ def cuda_ms(fn, reps=10, warm=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -181,8 +207,12 @@ def planted_heatmaps(gen):
 
 def phase_postprocess_kernel(gen):
     """K2 at (512, 17, 64, 48).  coords and maxvals must be bit-exact; gc
-    is a float sum in another order: rtol 1e-5."""
+    is a float sum in another order: rtol 1e-5.  `ms` is the kernels' own
+    device time (the raw ctypes launch into preallocated outputs, 20 back
+    to back between two events); the wrapper's time, with its three
+    allocations and its glue ops, is logged beside it."""
     import torch
+    from vatl4pose_tpu_torch.kernels import _build
     from vatl4pose_tpu_torch.kernels.postprocess import (
         fused_postprocess, postprocess_reference)
     hms = planted_heatmaps(gen)
@@ -193,19 +223,161 @@ def phase_postprocess_kernel(gen):
     gc_err = ((g - rg).abs() / rg.abs().clamp(min=1e-30)).max().item()
     max_err = max((c - rc).abs().max().item(), (m - rm).abs().max().item(),
                   (g - rg).abs().max().item())
-    ms = cuda_ms(lambda: fused_postprocess(hms), reps=20)
+    N, K, H, W = hms.shape
+    lib = _build.load("postprocess")
+    outs = [torch.empty(s, dtype=torch.float32, device="cuda")
+            for s in ((N, 7, K), (N * K, 2), (N,))]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        _build.check(lib.heatmap_postprocess_f32(
+            hms.data_ptr(), *(o.data_ptr() for o in outs), N, K, H, W,
+            stream), "heatmap_postprocess_f32")
+
+    ms = cuda_ms(raw, reps=10, inner=20)
+    wrapper_ms = cuda_ms(lambda: fused_postprocess(hms), reps=20)
     plain_ms = cuda_ms(lambda: postprocess_reference(hms), reps=10)
     nbytes = hms.numel() * 4 + (BATCH * 7 * 17 + BATCH * 17 * 2 + BATCH) * 4
     ops = hms.numel() * 20.0          # ~9 max + compares + adds per pixel
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     log(f"  K2 {tuple(hms.shape)}: coords/maxvals exact {exact}, gc max "
-        f"rel err {gc_err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"bound {max(t_bytes, t_ops):.4f} ms")
+        f"rel err {gc_err:.3e}, kernel {ms:.4f} ms (wrapper with glue "
+        f"{wrapper_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
+        f"{max(t_bytes, t_ops):.4f} ms")
     if not exact or gc_err > 1e-5:
         raise AssertionError("K2 disagrees with the plain version")
-    return {"ms": ms, "plain_ms": plain_ms,
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": max_err}
+
+
+def crop_batches(video, seed):
+    """Two K3 batches of RETRAIN.BATCH_SIZE crops from the video's frames,
+    their dst->src matrices drawn by train_sample_geometry: "train" with
+    the retrain config's augmentation (rotation with p=0.6, N(0, 40 deg)
+    clipped to +-80 deg, scale 0.3); "flips+edges" with flips on (p=0.5)
+    and every 4th box moved half past the left and every 4th + 2 half past
+    the bottom frame edge."""
+    import numpy as np
+    from vatl4pose_tpu_torch.data import AugCfg, train_sample_geometry
+    d = video.data
+    rng = np.random.default_rng(seed)
+    sel = rng.choice(len(d), RETRAIN["BATCH_SIZE"], replace=False)
+    fi = d.frame_idx[sel].astype(np.int64)
+    geo = dict(joints_xy=d.joints_xy[sel], joints_vis=d.joints_vis[sel],
+               img_wh=(d.width, d.height), input_size=INPUT_SIZE,
+               joint_pairs=video.joint_pairs, rng=rng)
+    train, _, _, _, _ = train_sample_geometry(d.bboxes[sel],
+                                              aug=AugCfg(**AUG), **geo)
+    bb = d.bboxes[sel].copy()
+    half_w = (bb[:, 2] - bb[:, 0]) / 2
+    half_h = (bb[:, 3] - bb[:, 1]) / 2
+    bb[0::4, 0::2] -= (bb[0::4, 0] + half_w[0::4])[:, None]
+    bb[2::4, 1::2] += (d.height - bb[2::4, 1] - half_h[2::4])[:, None]
+    edges, flips, _, _, _ = train_sample_geometry(
+        bb, aug=AugCfg(**dict(AUG, flip=True)), **geo)
+    rotated = np.mean(np.abs(train[:, 0, 1]) > 1e-6)
+    outside = outside_share(edges, d.width, d.height)
+    log(f"  K3 batches: {rotated:.2f} of 'train' rotated; 'flips+edges' "
+        f"{flips.mean():.2f} flipped, {outside:.2f} reaching outside the "
+        "frame")
+    if rotated < 0.3 or flips.mean() < 0.25 or outside < 0.25:
+        raise AssertionError("K3 batches miss rotations, flips or edges")
+    return {"train": (fi, train), "flips+edges": (fi, edges)}
+
+
+def outside_share(mats, width, height):
+    """Share of crops whose corners map outside the frame."""
+    import numpy as np
+    oh, ow = INPUT_SIZE
+    corners = np.array([[0, 0, 1], [ow - 1, 0, 1], [0, oh - 1, 1],
+                        [ow - 1, oh - 1, 1]], np.float64)
+    src = np.einsum("nij,cj->nci", mats.astype(np.float64), corners)
+    out = (src[..., 0] < 0) | (src[..., 0] > width - 1) \
+        | (src[..., 1] < 0) | (src[..., 1] > height - 1)
+    return float(out.any(axis=1).mean())
+
+
+def grid_sample_theta(mats, width, height):
+    """dst->src pixel affines as affine_grid's thetas (align_corners=True:
+    -1 and +1 are the centres of the first and last pixels)."""
+    import numpy as np
+    oh, ow = INPUT_SIZE
+    to_pix = np.array([[(ow - 1) / 2, 0, (ow - 1) / 2],
+                       [0, (oh - 1) / 2, (oh - 1) / 2], [0, 0, 1]])
+    to_unit = np.array([[2 / (width - 1), 0, -1], [0, 2 / (height - 1), -1]])
+    return (to_unit @ np.concatenate(
+        [mats.astype(np.float64),
+         np.broadcast_to([[[0, 0, 1]]], (len(mats), 1, 3))], 1)
+        @ to_pix).astype(np.float32)
+
+
+def phase_rot_warp_kernel(video, seed):
+    """K3 at the training path's shapes: 120 crops of 256x192 from the
+    video's 640x360 uint8 frames.  Tolerance: max |err| <= 1e-3/255 on the
+    normalized output (the coordinates, taps and weights round as in the
+    plain version; only the plain version's /255, a multiply by the
+    reciprocal, rounds otherwise).  Times: the kernel and its copy variant
+    (one tap, no interpolation, the same grid and bytes) 20 launches back
+    to back between two events; the plain version; and as the library
+    yardstick affine_grid + grid_sample (bilinear, zeros, align_corners)
+    on frames gathered and cast to f32 beforehand, untimed."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from vatl4pose_tpu_torch.kernels import (rot_warp_copy, rot_warp_crop,
+                                             rot_warp_crop_reference)
+    from vatl4pose_tpu_torch.ops import warp_affine_bilinear_batch
+    frames = video.frames_dev
+    dev = frames.device
+    max_err = 0.0
+    for name, (fi, mats) in crop_batches(video, seed).items():
+        args = (frames, torch.as_tensor(fi, device=dev),
+                torch.as_tensor(mats, device=dev), INPUT_SIZE)
+        got = rot_warp_crop(*args)
+        ref = rot_warp_crop_reference(*args)
+        err = (got - ref).abs().max().item()
+        log(f"  K3 '{name}' {tuple(got.shape)}: max|err| {err:.3e} "
+            f"(tolerance {1e-3 / 255:.3e})")
+        if not err <= 1e-3 / 255 or not got.isfinite().all():
+            raise AssertionError(f"K3 '{name}' disagrees with the plain "
+                                 "version")
+        max_err = max(max_err, err)
+        if name == "train":
+            timed = args
+    N = timed[1].shape[0]
+    oh, ow = INPUT_SIZE
+    ms = cuda_ms(lambda: rot_warp_crop(*timed), reps=10, inner=20)
+    copy_ms = cuda_ms(lambda: rot_warp_copy(*timed), reps=10, inner=20)
+    plain_ms = cuda_ms(lambda: rot_warp_crop_reference(*timed), reps=5)
+    src = frames[timed[1]].permute(0, 3, 1, 2).float().contiguous()
+    theta = torch.as_tensor(grid_sample_theta(
+        timed[2].cpu().numpy(), frames.shape[2], frames.shape[1]),
+        device=dev)
+
+    def library():
+        grid = F.affine_grid(theta, (N, 3, oh, ow), align_corners=True)
+        return F.grid_sample(src, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib_err = (library().permute(0, 2, 3, 1)
+               - warp_affine_bilinear_batch(*timed)).abs()
+    log(f"  K3 yardstick grid_sample vs plain on [0, 255]: max|err| "
+        f"{lib_err.max().item():.3e} mean {lib_err.mean().item():.3e}")
+    if not lib_err.mean().item() < 1e-2:
+        raise AssertionError("grid_sample's thetas do not give K3's crop")
+    library_ms = cuda_ms(library, reps=10, inner=5)
+    del src, lib_err
+    values = N * oh * ow * 3
+    t_bytes = values * (4 + 1) / HBM_BYTES_PER_S * 1e3
+    t_ops = values * 20.0 / F32_FLOPS * 1e3
+    log(f"  K3 N={N} {oh}x{ow}: kernel {ms:.4f} ms, copy variant "
+        f"{copy_ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
+    return {"ms": ms, "copy_ms": copy_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "max_abs_err": max_err}
 
@@ -238,15 +410,17 @@ def randomize_(model, gen):
 
 
 def make_video(seed):
-    """The main path's input: a synthetic video of 64 frames x 8 persons
-    at 640x360 (512 samples), decoded to (F, H, W, 3) uint8 frames, and
-    the score() arguments."""
+    """The main paths' input: a synthetic video of 64 frames x 8 persons
+    at 640x360 (512 samples), decoded to (F, H, W, 3) uint8 frames, which
+    stay on the card across passes as an AL loop keeps them across rounds;
+    with its VideoPoseData, joint pairs and the score() arguments."""
+    import types
     import numpy as np
+    import torch
     from vatl4pose_tpu_torch.data import build_dataset, make_synthetic_video
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        root, ann = make_synthetic_video(tmp, num_frames=64, num_persons=8,
-                                         width=640, height=360, seed=seed)
+        root, ann = make_synthetic_video(tmp, seed=seed, **VIDEO)
         ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root,
                             "ANN": ann})
         frames = ds.load_frames()
@@ -254,11 +428,18 @@ def make_video(seed):
             f"{frames.shape[2]}x{frames.shape[1]}, generated in "
             f"{time.perf_counter() - t0:.1f} s")
     d = ds.data
+    if len(d) < BATCH:
+        raise AssertionError(f"the video has {len(d)} samples, fewer than "
+                             f"one full chunk of {BATCH}")
+    frames_dev = torch.from_numpy(frames).cuda()
     bbox_ann = np.stack([d.bboxes[:, 0], d.bboxes[:, 1],
                          d.bboxes[:, 2] - d.bboxes[:, 0],
                          d.bboxes[:, 3] - d.bboxes[:, 1]], 1)
-    return frames, (frames, d.frame_idx, d.bboxes, d.gt_keypoints, bbox_ann,
-                    d.is_prev, d.is_next)
+    return types.SimpleNamespace(
+        frames=frames, frames_dev=frames_dev, data=d,
+        joint_pairs=ds.joint_pairs,
+        args=(frames_dev, d.frame_idx, d.bboxes, d.gt_keypoints, bbox_ann,
+              d.is_prev, d.is_next))
 
 
 def make_models(seed):
@@ -268,33 +449,26 @@ def make_models(seed):
     import torch
     from vatl4pose_tpu_torch.models import SimplePose, WholeBodyAE
     gen = torch.Generator().manual_seed(seed)
-    model = randomize_(SimplePose(num_joints=17, num_layers=50,
-                                  deconv_dim=(256, 256, 256),
-                                  fused_eval=True, device="cpu"), gen)
+    model = randomize_(SimplePose(**MODEL, fused_eval=True, device="cpu"),
+                       gen)
     ae = randomize_(WholeBodyAE(z_dim=4, input_dim=38, device="cpu"), gen)
     return model, ae
 
 
-def phase_main_path(seed):
+def phase_main_path(video, seed):
+    """The scoring path in f32 and bf16.  Returns the launch counts, the
+    warm samples/s, the models (on the card) and the f32 heatmaps."""
     import torch
     from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
-    from vatl4pose_tpu_torch.kernels import (KERNELS, fused_bottleneck_chain,
-                                             fused_postprocess,
-                                             reset_launch_counts)
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
 
-    frames, args = make_video(seed)
+    args = video.args
     frame_idx, bboxes = args[1], args[2]
     n = len(frame_idx)
-    if n < BATCH:
-        raise AssertionError(f"the video has {n} samples, fewer than one "
-                             f"full chunk of {BATCH}")
     model, ae = make_models(seed)
     model_cpu, ae_cpu = copy.deepcopy(model), copy.deepcopy(ae)
     model.cuda()
     ae.cuda()
-    # the decoded frames stay on the card across passes, as an AL loop
-    # keeps them across rounds
-    args = (torch.from_numpy(frames).cuda(),) + args[1:]
 
     counts, rates, results = {}, {}, {}
     for mode in ("f32", "bf16"):
@@ -305,9 +479,7 @@ def phase_main_path(seed):
         torch.cuda.synchronize()
         counts[mode] = {k.__name__: k.launches for k in KERNELS}
         log(f"main path {mode}: launches {counts[mode]}")
-        if fused_bottleneck_chain.launches == 0 \
-                or fused_postprocess.launches == 0:
-            raise AssertionError(f"{mode}: a kernel of the path never ran")
+        check_scoring_launches(counts[mode], mode)
         check_outputs(res, n)
         times = []
         for _ in range(3):
@@ -317,13 +489,14 @@ def phase_main_path(seed):
         rates[mode] = n / statistics.median(times)
         log(f"main path {mode}: warm scoring {rates[mode]:.1f} samples/s "
             f"({n} samples, median of 3: {statistics.median(times):.3f} s)")
-        profile_pass(engine, args, mode)
+        profile_call(lambda: engine.score(*args, keep_heatmaps=False),
+                     f"scoring pass {mode}")
         results[mode] = res
 
     # the same port on the CPU, first 32 samples, f32 (plain versions)
     ref = ScoringEngine(model_cpu, ScoringConfig(uncertainty="THC+WPU"),
                         ae_model=ae_cpu, chunk=32, device="cpu")
-    hm_cpu, emb_cpu, _ = ref.forward_video(frames, frame_idx[:32],
+    hm_cpu, emb_cpu, _ = ref.forward_video(video.frames, frame_idx[:32],
                                            bboxes[:32])
     # f32: TF32 off, so the GPU and CPU differ by summation order only;
     # bf16 rounds every layer's input to 8 mantissa bits over ~60 layers
@@ -336,20 +509,26 @@ def phase_main_path(seed):
             f"{e_hm:.3e}, embeddings {e_emb:.3e} (tolerance {tol})")
         if e_hm > tol or e_emb > tol:
             raise AssertionError(f"{mode}: GPU run disagrees with the CPU")
-    return counts, rates
+    return counts, rates, model, ae, results["f32"]["heatmaps"]
 
 
-def profile_pass(engine, args, mode, top=12):
-    """One more warm pass under torch.profiler: device time by kernel, and
-    the share of the pass's wall time (profiler overhead included) in
-    which the card ran nothing."""
+def check_scoring_launches(counts, what):
+    if counts["fused_bottleneck_chain"] == 0 \
+            or counts["fused_postprocess"] == 0:
+        raise AssertionError(f"{what}: a kernel of the path never ran")
+
+
+def profile_call(fn, label, top=12):
+    """fn() once more under torch.profiler: device time by kernel, and the
+    share of its wall time (profiler overhead included) in which the card
+    ran nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.score(*args, keep_heatmaps=False)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -357,14 +536,213 @@ def profile_pass(engine, args, mode, top=12):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
     if not dev:
-        log(f"profile {mode}: the profiler recorded no device time "
+        log(f"profile {label}: the profiler recorded no device time "
             "(breakdown not measured)")
         return
     busy = sum(t for _, t, _ in dev)
-    log(f"profile {mode}: pass wall {wall_ms:.1f} ms under the profiler, "
+    log(f"profile {label}: wall {wall_ms:.1f} ms under the profiler, "
         f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     for key, t, count in sorted(dev, key=lambda r: -r[1])[:top]:
         log(f"  {t:9.3f} ms {100 * t / busy:5.1f}% x{count:<4d} {key[:110]}")
+
+
+def make_retrainer(model, video, device=None, seed=166):
+    from vatl4pose_tpu_torch.data import AugCfg
+    from vatl4pose_tpu_torch.train import Retrainer
+    return Retrainer(model, RETRAIN, "SimplePose", input_size=INPUT_SIZE,
+                     hm_size=HM_SIZE, sigma=2.0, aug=AugCfg(**AUG),
+                     joint_pairs=video.joint_pairs, seed=seed, device=device)
+
+
+def train_batch(video, n, rng):
+    """One batch of n samples' step operands, drawn as the retrainer draws
+    them: (frame_idx, inv_mats, joints, vis, valid)."""
+    import numpy as np
+    from vatl4pose_tpu_torch.data import AugCfg, train_sample_geometry
+    d = video.data
+    sel = rng.choice(len(d), n, replace=False)
+    mats, _, joints, vis, _ = train_sample_geometry(
+        d.bboxes[sel], d.joints_xy[sel], d.joints_vis[sel],
+        (d.width, d.height), INPUT_SIZE, AugCfg(**AUG), video.joint_pairs,
+        rng)
+    return (d.frame_idx[sel].astype(np.int64), mats, joints, vis,
+            np.ones(n, bool))
+
+
+def phase_step_check(video, seed, n=8):
+    """One train step on n samples from the same weights on the card (f32,
+    TF32 off), with the same port on the CPU in f32, and on the CPU in f64
+    as the exact step.  Tolerances: loss relative 1e-4 between card and
+    CPU.  A gradient tensor passes at a relative Frobenius error <= 1e-3
+    between card and CPU, or where the card's f32 gradient is no further
+    from the f64 one than twice the CPU's f32 gradient is: behind a ReLU a
+    forward difference of relative size e flips about 0.4e of the gates,
+    which moves the gradient by about sqrt(0.4e), so two f32 runs that
+    differ by 1e-5 in the forward differ by about 2e-3 in the gradient.
+    After the AdamW step: all parameter elements within 2 lr mult (plus
+    one ulp) of the CPU's (AdamW's first step is lr mult sign(g), so a
+    sign flip of a tiny gradient moves an element by up to that), and >=
+    99.5% within 1e-6 + 1e-4|p| of the CPU's, or no fewer within it of the
+    f64 step than the CPU's f32 step has, less 0.5%."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.train import LR_GROUPS
+    model_cpu, _ = make_models(seed + 1)
+    runs = (("cpu", copy.deepcopy(model_cpu).double(),
+             torch.from_numpy(video.frames)),
+            ("cpu", model_cpu, torch.from_numpy(video.frames)),
+            ("cuda", copy.deepcopy(model_cpu).cuda(), video.frames_dev))
+    batch = train_batch(video, n, np.random.default_rng(seed + 1))
+    loss, grads, params = {}, {}, {}
+    for dev, model, frames in runs:
+        key = "f64" if next(model.parameters()).dtype == torch.float64 \
+            else dev
+        tr = make_retrainer(model.train(), video, device=dev)
+        t0 = time.perf_counter()
+        loss[key] = tr.train_step(frames, *batch)[0].item()
+        log(f"  step {key}: {time.perf_counter() - t0:.2f} s")
+        grads[key] = {k: p.grad.double().cpu()
+                      for k, p in model.named_parameters()}
+        params[key] = {k: p.detach().double().cpu()
+                       for k, p in model.named_parameters()}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    loss_err = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    failed, worst = [], {"card-CPU": 0.0, "card-f64": 0.0, "CPU-f64": 0.0,
+                         "ratio": 0.0}
+    for k, g in grads["cpu"].items():
+        e_gc = rel(grads["cuda"][k], g)
+        e_g, e_c = (rel(grads[d][k], grads["f64"][k]) for d in ("cuda", "cpu"))
+        for name, e in (("card-CPU", e_gc), ("card-f64", e_g),
+                        ("CPU-f64", e_c),
+                        ("ratio", e_g / max(1e-3, 2 * e_c))):
+            worst[name] = max(worst[name], e)
+        if e_gc > 1e-3 and e_g > max(1e-3, 2 * e_c):
+            failed.append((k, e_gc, e_g, e_c))
+    close = {"cuda-cpu": 0, "cuda-f64": 0, "cpu-f64": 0}
+    total, worst_p = 0, 0.0
+    for k, p in params["cpu"].items():
+        for pair in close:
+            a, b = (params[d][k] for d in pair.split("-"))
+            ok = (a - b).abs() <= 1e-6 + 1e-4 * b.abs()
+            close[pair] += ok.sum().item()
+        total += p.numel()
+        lr_mult = RETRAIN["LR"] * LR_GROUPS["SimplePose"](k.split(".")[0])
+        d = (params["cuda"][k] - p).abs()
+        worst_p = max(worst_p, (d / (2 * lr_mult + 2 * 1.2e-7 * p.abs()))
+                      .max().item())
+    share = {pair: c / total for pair, c in close.items()}
+    params_ok = worst_p <= 1.0 and (
+        share["cuda-cpu"] >= 0.995
+        or share["cuda-f64"] >= share["cpu-f64"] - 0.005)
+    log(f"  GPU vs CPU step ({n} samples): loss {loss['cuda']:.7e} vs "
+        f"{loss['cpu']:.7e} (f64 {loss['f64']:.7e}), rel err "
+        f"{loss_err:.3e} (tolerance 1e-4)")
+    log(f"  gradients, max rel Frobenius err over tensors: card-CPU "
+        f"{worst['card-CPU']:.3e}, card-f64 {worst['card-f64']:.3e}, "
+        f"CPU-f64 {worst['CPU-f64']:.3e}; max of card-f64 / max(1e-3, "
+        f"2 CPU-f64) {worst['ratio']:.3f} (<= 1 where card-CPU > 1e-3); "
+        f"{len(failed)} tensors fail both")
+    for k, e_gc, e_g, e_c in failed[:10]:
+        log(f"    {k}: card-CPU {e_gc:.3e} card-f64 {e_g:.3e} "
+            f"CPU-f64 {e_c:.3e}")
+    log(f"  parameters after AdamW, share within 1e-6 + 1e-4|p|: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in share.items())
+        + f"; max |card - CPU| / (2 lr mult) {worst_p:.4f} (<= 1)")
+    if not (loss_err <= 1e-4 and not failed and params_ok):
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+
+
+def phase_retrain(video, model, ae, hm_before, seed):
+    """The AL round's retrain of the phase-3 model: RETRAIN_EPOCHS epochs
+    over every sample, one retrain() call per epoch (the optimizer state
+    and the LR schedule carry over, as in one call); the counters are reset
+    before the first and read after the last.  Then one step profiled on a
+    copy, the AE fine-tune and the f32 rescoring."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.kernels import (KERNELS, reset_launch_counts,
+                                             rot_warp_crop)
+    from vatl4pose_tpu_torch.ops import compute_hybrid
+    from vatl4pose_tpu_torch.train import AETrainer
+    d = video.data
+    n = len(d)
+    idx = np.arange(n)
+    steps_per_epoch = -(-n // RETRAIN["BATCH_SIZE"])
+    tr = make_retrainer(model, video)
+    walls, curve = [], []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for epoch in range(RETRAIN_EPOCHS):
+        t0 = time.perf_counter()
+        loss, acc = tr.retrain(d, video.frames_dev, idx, 1,
+                               (d.width, d.height))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        curve.append((loss, acc))
+        log(f"retrain epoch {epoch + 1}: loss {loss:.7f} acc {acc:.4f}, "
+            f"{steps_per_epoch} steps in {walls[-1]:.3f} s")
+    counts = {k.__name__: k.launches for k in KERNELS}
+    steps = RETRAIN_EPOCHS * steps_per_epoch
+    log(f"retrain: launches {counts}, optimizer steps {steps}")
+    if rot_warp_crop.launches != steps:
+        raise AssertionError(f"K3 ran {rot_warp_crop.launches} times in "
+                             f"{steps} steps")
+    if not np.isfinite(curve).all():
+        raise AssertionError("retrain loss or accuracy is not finite")
+    warm = statistics.median(walls[1:])
+    rate = {"ms_per_step": warm / steps_per_epoch * 1e3,
+            "samples_per_s": n / warm, "steps": steps}
+    log(f"retrain warm (median of epochs 2-{RETRAIN_EPOCHS}): "
+        f"{rate['ms_per_step']:.1f} ms/step, {rate['samples_per_s']:.1f} "
+        f"samples/s (batch {RETRAIN['BATCH_SIZE']}, {n} samples an epoch)")
+
+    # one step on a copy, so that the retrained model takes no extra step
+    twin = make_retrainer(copy.deepcopy(model), video, seed=seed)
+    batch = train_batch(video, RETRAIN["BATCH_SIZE"],
+                        np.random.default_rng(seed))
+    twin.model.train()
+    for _ in range(2):
+        twin.train_step(video.frames_dev, *batch)
+    profile_call(lambda: twin.train_step(video.frames_dev, *batch),
+                 "retrain step")
+    del twin
+    torch.cuda.empty_cache()
+
+    feats = compute_hybrid(torch.from_numpy(d.raw_bbox_xywh),
+                           torch.from_numpy(d.gt_keypoints)).numpy()
+    before = [p.detach().clone() for p in ae.parameters()]
+    t0 = time.perf_counter()
+    AETrainer(lr=AE_LR, epochs=AE_EPOCHS, batch_size=10).train(ae, feats[idx])
+    torch.cuda.synchronize()
+    ae_s = time.perf_counter() - t0
+    moved = [(p - b).abs().max().item() for p, b in zip(ae.parameters(),
+                                                        before)]
+    log(f"AE fine-tune: {AE_EPOCHS} epochs over {len(idx)} features, "
+        f"{ae_s:.2f} s; max parameter change {max(moved):.3e}")
+    if not (np.isfinite(moved).all() and max(moved) > 0):
+        raise AssertionError("the AE fine-tune left the weights unchanged "
+                             "or not finite")
+
+    engine = ScoringEngine(model, ScoringConfig(uncertainty="THC+WPU"),
+                           ae_model=ae, chunk=BATCH)
+    reset_launch_counts()
+    res = engine.score(*video.args)
+    torch.cuda.synchronize()
+    rescore = {k.__name__: k.launches for k in KERNELS}
+    check_scoring_launches(rescore, "rescoring")
+    check_outputs(res, n)
+    change = (res["heatmaps"] - hm_before).abs().max().item()
+    log(f"rescoring f32 on the retrained weights: launches {rescore}, "
+        f"heatmaps max |change| {change:.3e}")
+    if not change > 0:
+        raise AssertionError("rescoring did not see the retrained weights")
+    rate["k3_launches"] = counts["rot_warp_crop"]
+    return rate
 
 
 def check_outputs(res, n):
@@ -402,15 +780,31 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     seed = 0
 
+    t_run = time.perf_counter()
+    t0 = t_run
+
+    def phase(title):
+        nonlocal t0
+        now = time.perf_counter()
+        log(f"   (phase wall {now - t0:.1f} s)")
+        t0 = now
+        log(f"== {title}")
+
     log("== phase 1: card and build")
     card = phase_card_and_build()
-    log("== phase 2: kernels vs plain versions")
+    video = make_video(seed)
+    phase("phase 2: kernels vs plain versions")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     k1 = {"f32": phase_chain_kernel(torch.float32, gen),
           "bf16": phase_chain_kernel(torch.bfloat16, gen)}
     k2 = phase_postprocess_kernel(gen)
-    log("== phase 3: main path")
-    counts, rates = phase_main_path(seed)
+    k3 = phase_rot_warp_kernel(video, seed)
+    phase("phase 3: scoring path")
+    counts, rates, model, ae, hm_f32 = phase_main_path(video, seed)
+    phase("phase 4: training path")
+    train = phase_retrain(video, model, ae, hm_f32, seed)
+    phase_step_check(video, seed)
+    phase("phase 5: result")
 
     kernels = []
     for mode in ("f32", "bf16"):
@@ -431,7 +825,19 @@ def main():
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None})
-    log(json.dumps({"scoring_samples_per_s": rates, "card": card}))
+    # replaces the shear kernels of rot_warp.py:459 and :162 (one function)
+    kernels.append({
+        "name": "rot_warp_f32", "route": "cuda",
+        "source": "vatl4pose_tpu_torch/csrc/rot_warp.cu",
+        "replaces": "vatl4pose_tpu/kernels/rot_warp.py:459",
+        "launches": train["k3_launches"],
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]})
+    log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
+                    "k2_wrapper_ms": k2["wrapper_ms"],
+                    "k3_copy_ms": k3["copy_ms"], "card": card,
+                    "wall_s": time.perf_counter() - t_run}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

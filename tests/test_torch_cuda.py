@@ -15,7 +15,9 @@ from vatl4pose_tpu_torch.kernels import (bottleneck_chain_reference,
                                          fused_bottleneck_chain,
                                          fused_postprocess,
                                          postprocess_reference,
-                                         reset_launch_counts)
+                                         reset_launch_counts, rot_warp_crop,
+                                         rot_warp_crop_reference)
+from vatl4pose_tpu_torch.ops import RGB_MEAN
 
 RNG = np.random.default_rng(8111)
 
@@ -88,3 +90,62 @@ def test_postprocess_kernel_matches_plain_on_card(cuda):
     assert torch.equal(coords, r_coords) and torch.equal(maxvals, r_maxvals)
     # gc: the same float sums in another order
     torch.testing.assert_close(gc, r_gc, rtol=1e-5, atol=0)
+
+
+def planted_crop_mats(W, H):
+    """dst->src affines: integer source positions (every weight 0 or 1),
+    taps on the last row and column, a crop wholly outside the frame, a
+    flip, a flipped rotation and two rotations with scale."""
+    mats = [[[1, 0, 5], [0, 1, 3]],
+            [[1, 0, W - 12.5], [0, 1, H - 10.5]],
+            [[1, 0, -200], [0, 1, H + 50]],
+            [[-1, 0, W - 1], [0, 1, 0]]]
+    for rot, s, flip in ((0.7, 1.3, True), (-1.2, 0.6, False),
+                         (2.9, 2.1, False)):
+        c, n = s * np.cos(rot), s * np.sin(rot)
+        m = [[c, -n, W / 2], [n, c, H / 2]]
+        if flip:
+            m[0] = [-m[0][0], -m[0][1], W - 1 - m[0][2]]
+        mats.append(m)
+    return np.asarray(mats, np.float32)
+
+
+@pytest.mark.cuda
+def test_rot_warp_kernel_matches_plain_on_card(cuda):
+    # ragged sizes: a crop that fills no whole block of threads
+    H, W, out = 37, 53, (19, 23)
+    frames = torch.from_numpy(RNG.integers(0, 256, (3, H, W, 3),
+                                           dtype=np.uint8)).to(cuda)
+    mats = torch.from_numpy(planted_crop_mats(W, H)).to(cuda)
+    fi = torch.tensor([0, 1, 2, 0, 1, 2, 0], dtype=torch.int64, device=cuda)
+    reset_launch_counts()
+    got = rot_warp_crop(frames, fi, mats, out)
+    assert rot_warp_crop.launches == 1
+    ref = rot_warp_crop_reference(frames, fi, mats, out)
+    # the coordinates, taps and weights round as in the plain version; its
+    # /255 is a multiply by the reciprocal
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 / 255)
+    mean = torch.as_tensor(RGB_MEAN, device=cuda)
+    want = frames[0, 3:3 + out[0], 5:5 + out[1]].float() / 255 - mean
+    torch.testing.assert_close(got[0], want, rtol=0, atol=1e-3 / 255)
+    assert torch.equal(got[2], (-mean).expand_as(got[2]))
+    # taps past the last row and column read 0: the crop's pixel (10, 12)
+    # reads the frame at (H - 0.5, W - 0.5), whose one tap inside is the
+    # last pixel, at weight 1/4; from (11, 13) on every tap is outside
+    corner = frames[1, H - 1, W - 1].float() * 0.25 / 255 - mean
+    torch.testing.assert_close(got[1, 10, 12], corner, rtol=0,
+                               atol=1e-3 / 255)
+    assert (got[1, 11:, 13:] == -mean).all()
+
+
+@pytest.mark.cuda
+def test_rot_warp_wrapper_refuses_bad_operands(cuda):
+    frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=cuda)
+    fi = torch.zeros(1, dtype=torch.int64, device=cuda)
+    mats = torch.zeros((1, 2, 3), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        rot_warp_crop(frames.float(), fi, mats, (4, 4))
+    with pytest.raises(ValueError, match="uint8"):
+        rot_warp_crop(frames.permute(0, 2, 1, 3), fi, mats, (4, 4))
+    with pytest.raises(ValueError, match="int64"):
+        rot_warp_crop(frames, fi.int(), mats, (4, 4))

@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p (never cut to 32
 # bits), every size an int; each entry returns cudaGetLastError()
 SIGNATURES = {
@@ -36,6 +37,10 @@ SIGNATURES = {
     },
     "postprocess": {
         "heatmap_postprocess_f32": [_P] * 4 + [_I] * 4 + [_P],
+    },
+    "rot_warp": {
+        "rot_warp_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
+        "rot_warp_copy_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
     },
 }
 

@@ -83,12 +83,12 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
             out[mod + ".bias"] = arr
         else:
             raise ValueError(f"unhandled Flax leaf: {'/'.join(path)}")
-    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
-          for k, v in out.items()}
+    # np.array copies: a tree of jax arrays passed through np.asarray is
+    # read-only, and the tensors here become the model's own weights
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
     stats = {"mean": "running_mean", "var": "running_var"}
     for path, arr in _leaves(variables.get("batch_stats", {})):
         mod = name_of(list(path[:-1]))
-        sd[f"{mod}.{stats[path[-1]]}"] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        sd[f"{mod}.{stats[path[-1]]}"] = torch.from_numpy(np.array(arr))
         sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd

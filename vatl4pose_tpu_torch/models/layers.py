@@ -5,13 +5,44 @@ without bias, MaxPool2d(3, 2, 1)."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+from torch.nn import functional as F
 
-__all__ = ["batchnorm", "conv_transpose", "max_pool"]
+__all__ = ["BatchNorm2d", "batchnorm", "conv_transpose", "max_pool"]
 
 
-def batchnorm(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training step updates `running_var` with the
+    biased batch variance, as Flax's BatchNorm in the JAX package does
+    (torch's own uses the unbiased one, n/(n-1) larger).  The forward
+    normalizes with the batch statistics either way; eval mode is
+    unchanged.
+
+    The batch statistics come from the same F.batch_norm call, run with
+    momentum 1 into scratch buffers (which then hold the batch mean and the
+    unbiased variance); the running buffers are updated from those."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        c = self.num_features
+        batch_mean = torch.zeros(c, dtype=x.dtype, device=x.device)
+        batch_var = torch.zeros(c, dtype=x.dtype, device=x.device)
+        y = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias,
+                         True, 1.0, self.eps)
+        n = x.numel() // c
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1 - m).add_(batch_mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(batch_var,
+                                              alpha=m * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batchnorm(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 def conv_transpose(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:

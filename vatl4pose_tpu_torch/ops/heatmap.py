@@ -1,5 +1,6 @@
-"""Heatmap decoding on tensors (counterpart of vatl4pose_tpu/ops/
-heatmap.py: `get_max_pred`, `subpixel_refine`, `heatmap_to_coord`).
+"""Heatmap targets and decoding on tensors (counterpart of vatl4pose_tpu/
+ops/heatmap.py: `gaussian_target`, `get_max_pred`, `subpixel_refine`,
+`heatmap_to_coord`).
 
 Layout: (..., K, H, W) at the public API (H=64, W=48 for the shipped
 configs).
@@ -11,8 +12,44 @@ import torch
 
 from .affine import transform_preds
 
-__all__ = ["get_max_pred", "subpixel_refine", "heatmap_to_coord",
-           "crop_to_image"]
+__all__ = ["gaussian_target", "get_max_pred", "subpixel_refine",
+           "heatmap_to_coord", "crop_to_image"]
+
+
+def gaussian_target(joints_xy, joints_vis, hm_size, sigma: float,
+                    feat_stride=(4.0, 4.0)):
+    """Unnormalized Gaussian target heatmaps (simple_transform.py:122-158).
+
+    joints_xy: (..., K, 2) in input-image space; joints_vis: (..., K) in
+    {0, 1}; hm_size: (H, W).  Returns (target (..., K, H, W) float32,
+    weight (..., K) float32).  The peak sits at mu = trunc(x/stride + 0.5),
+    the Gaussian is evaluated on integer offsets from mu, cut to
+    [mu - 3 sigma, mu + 3 sigma], and the weight is 0 where that window lies
+    fully outside the map.
+    """
+    H, W = int(hm_size[0]), int(hm_size[1])
+    sigma = float(sigma)
+    tmp = int(sigma * 3)
+    joints_xy = torch.as_tensor(joints_xy, dtype=torch.float32)
+    dev = joints_xy.device
+    vis = torch.as_tensor(joints_vis, dtype=torch.float32, device=dev)
+    mu_x = torch.trunc(joints_xy[..., 0] / feat_stride[0] + 0.5).to(
+        torch.int32)
+    mu_y = torch.trunc(joints_xy[..., 1] / feat_stride[1] + 0.5).to(
+        torch.int32)
+    outside = ((mu_x - tmp >= W) | (mu_y - tmp >= H)
+               | (mu_x + tmp + 1 < 0) | (mu_y + tmp + 1 < 0))
+    weight = torch.where(outside, 0.0, vis)
+
+    dx = torch.arange(W, dtype=torch.int32, device=dev) - mu_x[..., None]
+    dy = torch.arange(H, dtype=torch.int32, device=dev) - mu_y[..., None]
+    gx = torch.exp(-(dx.to(torch.float32) ** 2) / (2 * sigma ** 2)) \
+        * (dx.abs() <= tmp)
+    gy = torch.exp(-(dy.to(torch.float32) ** 2) / (2 * sigma ** 2)) \
+        * (dy.abs() <= tmp)
+    g = gy[..., :, None] * gx[..., None, :]          # (..., K, H, W)
+    draw = (weight > 0.5).to(torch.float32)
+    return g * draw[..., None, None], weight
 
 
 def get_max_pred(hms):

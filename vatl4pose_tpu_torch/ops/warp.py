@@ -1,7 +1,15 @@
 """Person crops + normalization on the device (counterpart of
-vatl4pose_tpu/ops/warp.py: `crop_batch` and `RGB_MEAN`).
+vatl4pose_tpu/ops/warp.py: `warp_affine_bilinear`, `crop_batch` and
+`RGB_MEAN`).
 
-Every scoring crop is axis-aligned (rot=0), so the bilinear warp with a
+`warp_affine_bilinear_batch` is the general crop: any dst->src affine
+(rotation, scale, flip), 4-tap bilinear with a constant-0 border per tap
+(cv2.warpAffine INTER_LINEAR + BORDER_CONSTANT 0, up to cv2's 5-bit
+coefficient quantization).  It is the plain version of the training crop
+kernel (kernels/rot_warp.py), and every operation of it is one tensor op
+rounded on its own, so the kernel can repeat its arithmetic bit for bit.
+
+Every scoring crop is axis-aligned (rot=0), so the scoring warp with a
 constant-0 border is separable: out[n] = Wy[n] @ frames[fi[n]] @ Wx[n]^T
 with hat-kernel (tent) weight rows, two batched matrix products.
 Out-of-range source coordinates get all-zero weight rows, which is
@@ -15,7 +23,8 @@ import torch
 
 from .affine import box_to_center_scale, center_scale_to_box, get_affine_transform
 
-__all__ = ["warp_axis_aligned_batch", "crop_batch", "RGB_MEAN"]
+__all__ = ["warp_affine_bilinear", "warp_affine_bilinear_batch",
+           "warp_axis_aligned_batch", "crop_batch", "RGB_MEAN"]
 
 # peak-memory cap for the (chunk, H, W, C) gathered-frames buffer: large
 # source frames are warped in sub-chunks under it
@@ -23,6 +32,61 @@ _WARP_BUDGET_BYTES = 256 * 2 ** 20
 
 # channel means subtracted after /255 (simple_transform.py:94-96), RGB order
 RGB_MEAN = np.array([0.406, 0.457, 0.480], dtype=np.float32)
+
+
+def warp_affine_bilinear_batch(frames, frame_idx, inv_mats, out_size):
+    """frames: (F, H, W, C) uint8 or float in [0, 255]; frame_idx: (N,)
+    integer; inv_mats: (N, 2, 3) dst->src.  Returns (N, out_h, out_w, C)
+    float32, not normalized.
+
+    Per output pixel: s = M (x, y, 1) as (m0*x + m1*y) + m2, the taps at
+    floor(s) and +1, each read as 0 outside the frame, and the sum
+    ((v00*w00 + v01*w01) + v10*w10) + v11*w11 with w00 = (1-fx)*(1-fy),
+    w01 = fx*(1-fy), w10 = (1-fx)*fy, w11 = fx*fy."""
+    out_h, out_w = int(out_size[0]), int(out_size[1])
+    F_, H, W, C = frames.shape
+    dev = frames.device
+    f32 = torch.float32
+    m = torch.as_tensor(inv_mats, dtype=f32, device=dev)[..., None, None]
+    gy, gx = torch.meshgrid(torch.arange(out_h, dtype=f32, device=dev),
+                            torch.arange(out_w, dtype=f32, device=dev),
+                            indexing="ij")
+    sx = m[:, 0, 0] * gx + m[:, 0, 1] * gy + m[:, 0, 2]     # (N, oh, ow)
+    sy = m[:, 1, 0] * gx + m[:, 1, 1] * gy + m[:, 1, 2]
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    x0i = x0.to(torch.long)
+    y0i = y0.to(torch.long)
+    fi = torch.as_tensor(frame_idx, dtype=torch.long,
+                         device=dev)[:, None, None]
+    flat = frames.reshape(F_ * H * W, C)
+
+    def sample(yy, xx):
+        inb = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+        idx = (fi * H + yy.clamp(0, H - 1)) * W + xx.clamp(0, W - 1)
+        return flat[idx].to(f32) * inb[..., None].to(f32)
+
+    v00 = sample(y0i, x0i)
+    v01 = sample(y0i, x0i + 1)
+    v10 = sample(y0i + 1, x0i)
+    v11 = sample(y0i + 1, x0i + 1)
+    w00 = ((1 - fx) * (1 - fy))[..., None]
+    w01 = (fx * (1 - fy))[..., None]
+    w10 = ((1 - fx) * fy)[..., None]
+    w11 = (fx * fy)[..., None]
+    return v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
+
+
+def warp_affine_bilinear(image, inv_mat, out_size):
+    """Bilinear warp of one (H, W, C) image by the dst->src (2, 3)
+    `inv_mat`; out_size (out_h, out_w).  Out-of-bounds taps read 0."""
+    image = torch.as_tensor(image)
+    inv_mat = torch.as_tensor(inv_mat, dtype=torch.float32,
+                              device=image.device)
+    return warp_affine_bilinear_batch(image[None], [0], inv_mat[None],
+                                      out_size)[0]
 
 
 def _hat(s, size):

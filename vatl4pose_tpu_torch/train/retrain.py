@@ -1,0 +1,236 @@
+"""Fine-tuning loops: the pose estimator and the WPU autoencoder
+(counterpart of vatl4pose_tpu/train/retrain.py: `Retrainer`, `AETrainer`).
+
+Parity: ActiveLearning.py:651-686 (retrain_model: AdamW with per-layer LR
+groups, 0.5x masked MSE, ExponentialLR stepped per epoch, shuffled
+batches) and :905-925 (retrain_AE).  The host draws every batch's sample
+geometry from the trainer's numpy Generator in the JAX package's order;
+the card does the rest of the step: the crop (kernels/rot_warp.py), the
+Gaussian targets, the forward and backward, the optimizer and the PCK
+accuracy.
+
+The JAX package fuses steps into `lax.scan` chunks (STEP_CHUNK, a
+`prewarm` compile, no-op padded steps) to cut dispatch through the TPU's
+host link.  Eager PyTorch dispatches each step's kernels directly, so the
+port runs one optimizer step per batch and none of that is ported; the
+loss and accuracy still stay on the card until one fetch at the end.
+bf16 retraining and the streaming path (ROADMAP A10) and data-parallel
+retraining (A14) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.pipeline import AugCfg, pad_to, train_sample_geometry
+from ..device import resolve_device
+from ..kernels.rot_warp import rot_warp_crop
+from ..models.criterion import masked_heatmap_loss
+from ..ops.heatmap import gaussian_target
+from ..utils.metrics import acc_tensor
+from .optim import build_optimizer, exponential_lr, set_lr
+
+__all__ = ["Retrainer", "AETrainer"]
+
+
+def _weighted_stats(stats, counts):
+    """Per-step (loss, acc) device rows -> sample-weighted averages, with one
+    device-to-host fetch (DataLogger semantics, metrics.py:14-32)."""
+    if not stats:
+        return 0.0, 0.0
+    arr = torch.stack(stats).cpu().numpy().astype(np.float64)
+    w = np.asarray(counts, np.float64)
+    loss_avg, acc_avg = (arr * w[:, None]).sum(0) / w.sum()
+    return float(loss_avg), float(acc_avg)
+
+
+def _check_model_device(model, device):
+    p = next(model.parameters(), None)
+    if p is not None and p.device.type != device.type:
+        raise ValueError(f"the model is on {p.device}, the trainer on "
+                         f"{device}")
+
+
+class Retrainer:
+    """Fine-tunes the pose estimator `model` (an nn.Module, trained in
+    place) over a subset of one video's samples.  The optimizer state and
+    `epoch_counter` live on the trainer and survive across calls, as the AL
+    loop's continual mode needs; `reset_schedule` and `reset_optimizer`
+    start them anew.  device=None means CUDA."""
+
+    def __init__(self, model, retrain_cfg, model_type: str,
+                 input_size=(256, 192), hm_size=(64, 48), sigma=2.0,
+                 aug: Optional[AugCfg] = None, joint_pairs=None,
+                 seed: int = 166, bf16: bool = False, mesh=None,
+                 device=None):
+        if bf16 or retrain_cfg.get("BF16", False):
+            raise NotImplementedError(
+                "bf16 retraining is not ported yet (ROADMAP A10)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel retraining is not ported yet (ROADMAP A14)")
+        self.device = resolve_device(device)
+        _check_model_device(model, self.device)
+        self.model = model
+        self.cfg = retrain_cfg
+        self.model_type = model_type
+        self.input_size = tuple(input_size)
+        self.hm_size = tuple(hm_size)
+        self.sigma = float(sigma)
+        self.aug = aug or AugCfg()
+        self.joint_pairs = joint_pairs or []
+        self.lr_of = exponential_lr(retrain_cfg["LR"],
+                                    retrain_cfg.get("LR_GAMMA", 1.0))
+        self.batch_size = retrain_cfg["BATCH_SIZE"]
+        self.epoch_counter = 0
+        self.rng = np.random.default_rng(seed)
+        self.optimizer = build_optimizer(model, retrain_cfg, model_type)
+
+    def reset_schedule(self):
+        self.epoch_counter = 0
+
+    def reset_optimizer(self):
+        self.optimizer = build_optimizer(self.model, self.cfg,
+                                         self.model_type)
+
+    def _upload(self, a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def train_step(self, frames, frame_idx, inv_mats, joints, vis, valid):
+        """One optimizer step on one batch, at the groups' current learning
+        rates, with the model in train mode.
+
+        frames: (F, H, W, 3) uint8 on the trainer's device; frame_idx (N,),
+        inv_mats (N, 2, 3) dst->src, joints (N, K, 2) in input space, vis
+        (N, K), valid (N,) bool, as tensors on the device or numpy arrays.
+        Returns the (2,) device tensor (loss, acc); the gradients stay in
+        the parameters' `.grad`."""
+        f32 = torch.float32
+        crops = rot_warp_crop(frames, self._upload(frame_idx, torch.int64),
+                              self._upload(inv_mats, f32), self.input_size)
+        # (N, oh, ow, 3) is the channels-last layout of (N, 3, oh, ow); a
+        # float64 model (a reference step) takes the crops in its dtype
+        x = crops.permute(0, 3, 1, 2).to(next(self.model.parameters()).dtype)
+        target, tw = gaussian_target(self._upload(joints, f32),
+                                     self._upload(vis, f32), self.hm_size,
+                                     self.sigma)
+        mask = tw[:, :, None, None]
+        out = self.model(x)
+        loss = masked_heatmap_loss(out, target, mask,
+                                   valid=self._upload(valid, torch.bool))
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        acc = acc_tensor(out.detach().float(), target * mask)
+        return torch.stack([loss.detach().float(), acc])
+
+    def retrain(self, data, frames, indices, num_epochs: int, img_wh,
+                log=None):
+        """`num_epochs` epochs over the samples `indices` of `data`
+        (VideoPoseData); frames (F, H, W, 3) uint8, best kept on the device
+        across calls.  Trains the model in place and returns the
+        sample-weighted (loss, acc) averages."""
+        frames = torch.as_tensor(frames, device=self.device)
+        indices = np.asarray(indices, np.int64)
+        bs = self.batch_size
+        # every step's geometry first, in the rng order of a per-step loop
+        lrs, ns, fi, mats, joints, vis, valid = ([] for _ in range(7))
+        for _ in range(num_epochs):
+            lr = self.lr_of(self.epoch_counter)
+            order = self.rng.permutation(len(indices))
+            for s in range(0, len(order), bs):
+                sel = indices[order[s:s + bs]]
+                # cycle-pad, not zero-pad: BatchNorm reduces over the whole
+                # batch, and equal replication keeps the batch statistics;
+                # `valid` keeps the replicas out of the loss
+                sel_p = np.resize(sel, bs)
+                m, _, j, v, _ = train_sample_geometry(
+                    data.bboxes[sel_p], data.joints_xy[sel_p],
+                    data.joints_vis[sel_p], img_wh, self.input_size,
+                    self.aug, self.joint_pairs, self.rng)
+                ok = np.zeros(bs, bool)
+                ok[:len(sel)] = True
+                for lst, a in ((lrs, lr), (ns, len(sel)),
+                               (fi, data.frame_idx[sel_p]), (mats, m),
+                               (joints, j), (vis, v), (valid, ok)):
+                    lst.append(a)
+            self.epoch_counter += 1
+        if not ns:
+            return 0.0, 0.0
+        fi = np.stack(fi).astype(np.int64)
+        if fi.min() < 0 or fi.max() >= frames.shape[0]:
+            raise IndexError(f"frame index outside [0, {frames.shape[0]})")
+        f32 = torch.float32
+        fi, mats, joints, vis, valid = (
+            self._upload(np.stack(a), t) for a, t in (
+                (fi, torch.int64), (mats, f32), (joints, f32), (vis, f32),
+                (valid, torch.bool)))
+        stats = []
+        was_training = self.model.training
+        self.model.train()
+        try:
+            for k, lr in enumerate(lrs):
+                set_lr(self.optimizer, lr)
+                stats.append(self.train_step(frames, fi[k], mats[k],
+                                             joints[k], vis[k], valid[k]))
+        finally:
+            self.model.train(was_training)
+        # accuracy over the cycled batch counts replicas of real rows too
+        loss_avg, acc_avg = _weighted_stats(stats, ns)
+        if log:
+            log(f"loss: {loss_avg:.7f} | acc: {acc_avg:.4f}")
+        return loss_avg, acc_avg
+
+    def retrain_streaming(self, *args, **kwargs):
+        raise NotImplementedError(
+            "streaming retraining is not ported yet (ROADMAP A10)")
+
+
+class AETrainer:
+    """WPU autoencoder fine-tuning (ActiveLearning.py:905-925): Adam, a
+    masked MSE, a fixed number of epochs, batch 10, the last batch of an
+    epoch zero-padded.  device=None means CUDA."""
+
+    def __init__(self, lr: float, epochs: int, batch_size: int = 10,
+                 seed: int = 318, device=None):
+        self.device = resolve_device(device)
+        self.lr = lr
+        self.epochs = epochs
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def train(self, ae, features: np.ndarray):
+        """Fine-tune `ae` in place on (n, D) features with a fresh Adam;
+        returns `ae`."""
+        _check_model_device(ae, self.device)
+        features = np.asarray(features, np.float32)
+        n, bs = len(features), self.batch_size
+        batches, valids = [], []
+        for _ in range(self.epochs):
+            order = self.rng.permutation(n)
+            for s in range(0, n, bs):
+                sel = order[s:s + bs]
+                batches.append(pad_to(features[sel], bs))
+                v = np.zeros(bs, np.float32)
+                v[:len(sel)] = 1.0
+                valids.append(v)
+        if not batches:
+            return ae
+        feats = torch.as_tensor(np.stack(batches), device=self.device)
+        valid = torch.as_tensor(np.stack(valids), device=self.device)
+        opt = torch.optim.Adam(ae.parameters(), lr=self.lr)
+        was_training = ae.training
+        ae.train()
+        try:
+            for f, v in zip(feats, valid):
+                sq = (ae(f) - f).square().mean(dim=-1)
+                loss = (sq * v).sum() / v.sum().clamp(min=1)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+        finally:
+            ae.train(was_training)
+        return ae

@@ -1,0 +1,44 @@
+"""PCK-style heatmap accuracy (counterpart of vatl4pose_tpu/utils/
+metrics.py: `_acc_impl`, `calc_accuracy`).
+
+Parity: alphapose/utils/metrics.py:118-147,221-245 (calc_accuracy /
+calc_dist / dist_acc): heatmap-argmax accuracy with norm = heatmap
+size / 10 and threshold 0.5, a joint counted only where the label's argmax
+is at x > 1 and y > 1.  The argmax is the port's `get_max_pred` (first
+max wins).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.heatmap import get_max_pred
+
+__all__ = ["acc_tensor", "calc_accuracy"]
+
+
+def acc_tensor(preds, labels, thr: float = 0.5):
+    """preds/labels: (N, K, H, W).  The accuracy as a 0-d float32 tensor on
+    their device (no host sync)."""
+    p, _ = get_max_pred(preds)
+    lab, _ = get_max_pred(labels)
+    H, W = preds.shape[-2], preds.shape[-1]
+    norm = torch.tensor([W, H], dtype=torch.float32,
+                        device=preds.device) / 10.0
+    visible = (lab[..., 0] > 1) & (lab[..., 1] > 1)           # (N, K)
+    dist = torch.linalg.norm((p - lab) / norm, dim=-1)
+    # -1 marks an invisible joint: an exact hit has dist 0 and counts
+    dist = torch.where(visible, dist, -1.0)
+    dist_cal = dist != -1.0
+    num = dist_cal.sum(dim=0)                                 # (K,)
+    hit = (dist_cal & (dist < thr)).sum(dim=0)
+    acc = torch.where(num > 0, hit / num.clamp(min=1), -1.0)
+    valid = acc >= 0
+    mean = torch.where(valid, acc, 0.0).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid.any(), mean, 0.0).to(torch.float32)
+
+
+def calc_accuracy(preds, labels, thr: float = 0.5) -> float:
+    """preds/labels: (N, K, H, W); see metrics.py:118-147."""
+    return float(acc_tensor(torch.as_tensor(preds), torch.as_tensor(labels),
+                            thr))
