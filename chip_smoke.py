@@ -6,12 +6,15 @@
 Phases, each of which fails the run on error, each with its wall time:
   1. card and build: the card's name and power limit, torch/CUDA versions,
      the three CUDA kernels built with nvcc from csrc/, all at once
-     (ptxas report included);
+     (ptxas report included), and the tensor-core instructions (HGMMA,
+     HMMA) of K1's f32 and bf16 kernels in the built library's SASS
+     (cuobjdump), none of which fails the run;
   2. kernel vs plain PyTorch version on the card, at the shapes of the
      main paths, with CUDA-event times, bounds and errors: K1 (bottleneck
-     chain), K2 (heatmap post-process; its own device time beside the
-     wrapper's), K3 (training crop; beside it its copy variant and
-     grid_sample as the library yardstick);
+     chain; beside its bound its design's unfused byte floor, and as a
+     yardstick the same chain through cuDNN), K2 (heatmap post-process;
+     its own device time beside the wrapper's), K3 (training crop; beside
+     it its copy variant and grid_sample as the library yardstick);
   3. scoring path: one THC+WPU scoring pass (ScoringEngine, fused_eval) of
      SimplePose-R50 at 256x192 over a synthetic video of 512 samples, in
      f32 parity mode and in bf16, with the launch counters reset before
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import copy
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,6 +51,7 @@ from pathlib import Path
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # CUDA cores, no tensor cores
+TF32_FLOPS = 495e12          # tensor cores
 BF16_FLOPS = 989e12          # tensor cores
 
 # SimplePose-R50 at 256x192: (H, W, C, P, blocks in the fused tail)
@@ -112,7 +117,34 @@ def phase_card_and_build():
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    counts = tensor_core_instructions(_build.lib_path("fused_bottleneck"))
+    for fn, n in counts.items():
+        log(f"  SASS {n:5d} tensor-core instructions in {fn}")
+    per_entry = {"f32": 0, "bf16": 0}
+    for fn, n in counts.items():
+        per_entry["bf16" if "__nv_bfloat16" in fn else "f32"] += n
+    log(f"K1 tensor-core instructions (HGMMA/HMMA) per entry point: "
+        f"{per_entry}")
+    if min(per_entry.values()) == 0:
+        raise AssertionError("an entry point of K1 has no tensor-core "
+                             "instruction")
     return card
+
+
+def tensor_core_instructions(lib):
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions of each kernel
+    function in a built library's SASS, from `cuobjdump -sass`."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HGMMA" in line or "HMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 def _chain_inputs(N, H, W, C, P, nb, dtype, gen):
@@ -135,17 +167,49 @@ def _chain_inputs(N, H, W, C, P, nb, dtype, gen):
     return x, ws
 
 
+def cudnn_chain(x, ws):
+    """The yardstick for K1, which the port never calls: the same chain as
+    3*nb cuDNN convolutions in the stream dtype on channels-last tensors,
+    each followed by its epilogue as eager ops in the stream dtype (TF32
+    off, as main() sets it)."""
+    import torch
+    import torch.nn.functional as F
+    w1, s1, b1, w2, s2, b2, w3, s3, b3 = ws
+    dt = x.dtype
+    cl = torch.channels_last
+    cur = x.permute(0, 3, 1, 2)          # NCHW view, channels-last memory
+    for i in range(w1.shape[0]):
+        k1 = w1[i].t()[:, :, None, None].contiguous(memory_format=cl)
+        k2 = w2[i].permute(3, 2, 0, 1).contiguous(memory_format=cl)
+        k3 = w3[i].t()[:, :, None, None].contiguous(memory_format=cl)
+        h = torch.relu(F.conv2d(cur, k1) * s1[i].to(dt)[:, None, None]
+                       + b1[i].to(dt)[:, None, None])
+        h = torch.relu(F.conv2d(h, k2, padding=1)
+                       * s2[i].to(dt)[:, None, None]
+                       + b2[i].to(dt)[:, None, None])
+        cur = torch.relu(F.conv2d(h, k3) * s3[i].to(dt)[:, None, None]
+                         + b3[i].to(dt)[:, None, None] + cur)
+    return cur
+
+
 def phase_chain_kernel(dtype, gen):
-    """K1 at the four R50 stage shapes, N=512.  Tolerances: f32 (TF32 off)
-    differs from cuDNN only by summation order, so max|err| <= 1e-4 of the
-    output's max; bf16 rounds each of 3*nb epilogues to 8 mantissa bits,
-    and a one-ulp flip in either version propagates down the chain, so
-    max|err| <= 5e-2 and mean|err| <= 5e-3 of the output's max."""
+    """K1 at the four R50 stage shapes, N=512.  Tolerances: f32 (3xTF32,
+    against cuDNN in full f32) is of the order of f32 rounding, so
+    max|err| <= 1e-4 of the output's max; bf16 rounds each of 3*nb
+    epilogues to 8 mantissa bits, and a one-ulp flip in either version
+    propagates down the chain, so max|err| <= 5e-2 and mean|err| <= 5e-3
+    of the output's max.  Bound: the larger of the bytes (the stream read
+    and written once, the weights read once) and the FLOPs, in bf16 over
+    the tensor cores' peak, in f32 over the lesser of the CUDA cores' time
+    and three TF32 products' time.  Beside it this design's unfused byte
+    floor (4 stream sizes a block: the stream read twice and written once,
+    y1 and y2 written and read) and the cuDNN chain as a yardstick."""
     import torch
     from vatl4pose_tpu_torch.kernels.fused_bottleneck import (
         bottleneck_chain_reference, fused_bottleneck_chain)
     f32 = dtype == torch.float32
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "floor_ms": 0.0,
+           "cudnn_ms": 0.0, "max_abs_err": 0.0}
     bound_share = {"operations": 0.0, "bytes": 0.0}
     for (H, W, C, P, nb) in R50_CHAINS:
         x, ws = _chain_inputs(BATCH, H, W, C, P, nb, dtype, gen)
@@ -160,28 +224,43 @@ def phase_chain_kernel(dtype, gen):
         ms = cuda_ms(lambda: fused_bottleneck_chain(x, *ws))
         plain_ms = cuda_ms(lambda: bottleneck_chain_reference(x, *ws),
                            reps=5)
+        cudnn_ms = cuda_ms(lambda: cudnn_chain(x, ws), reps=5)
         flops = 2.0 * BATCH * H * W * (2 * C * P + 9 * P * P) * nb
         nbytes = 2 * x.numel() * x.element_size() \
             + sum(w.numel() * w.element_size() for w in ws)
-        t_ops = flops / (F32_FLOPS if f32 else BF16_FLOPS) * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3 if not f32 else \
+            min(flops / F32_FLOPS, 3 * flops / TF32_FLOPS) * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_share["operations" if t_ops >= t_bytes else "bytes"] += \
-            max(t_ops, t_bytes)
+        bound = max(t_ops, t_bytes)
+        floor_ms = 4 * x.numel() * x.element_size() * nb \
+            / HBM_BYTES_PER_S * 1e3
+        bound_share["operations" if t_ops >= t_bytes else "bytes"] += bound
         log(f"  K1 {str(dtype)[6:]} N={BATCH} {H}x{W} C={C} P={P} nb={nb}: "
             f"max|err| {max_err:.3e} mean|err| {mean_err:.3e} "
             f"(|ref|max {scale:.3e}) kernel {ms:.3f} ms plain "
-            f"{plain_ms:.3f} ms bound {max(t_ops, t_bytes):.3f} ms "
+            f"{plain_ms:.3f} ms bound {bound:.3f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}) unfused "
+            f"floor {floor_ms:.3f} ms cuDNN chain {cudnn_ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s)")
         if not ok:
             raise AssertionError(f"K1 {dtype} {H}x{W}: kernel disagrees "
                                  "with the plain version")
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += max(t_ops, t_bytes)
+        tot["bound_ms"] += bound
+        tot["floor_ms"] += floor_ms
+        tot["cudnn_ms"] += cudnn_ms
         tot["max_abs_err"] = max(tot["max_abs_err"], max_err)
         del x, ws, got, ref
     # the summed bound is labelled by the side that bounds most of it
     tot["bound_by"] = max(bound_share, key=bound_share.get)
+    log(f"K1 {str(dtype)[6:]} over the four stages: kernel "
+        f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+        f"({tot['bound_by']}), unfused floor {tot['floor_ms']:.3f} ms, "
+        f"plain {tot['plain_ms']:.3f} ms")
+    log(f"K1 yardstick (not used by the port): the cuDNN chain, "
+        f"{str(dtype)[6:]}, channels-last, 3*nb F.conv2d with eager "
+        f"epilogues: {tot['cudnn_ms']:.3f} ms")
     return tot
 
 
@@ -835,6 +914,8 @@ def main():
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]})
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
+                    "k1_unfused_floor_ms": {m: k1[m]["floor_ms"] for m in k1},
+                    "k1_cudnn_chain_ms": {m: k1[m]["cudnn_ms"] for m in k1},
                     "k2_wrapper_ms": k2["wrapper_ms"],
                     "k3_copy_ms": k3["copy_ms"], "card": card,
                     "wall_s": time.perf_counter() - t_run}))

@@ -64,6 +64,65 @@ def test_chain_kernel_matches_plain_on_card(cuda, dtype):
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def he_chain_operands(nb, C, P, dtype, device):
+    """He-scaled folded chain weights, which keep the stream O(1) over the
+    blocks, with small bn3 gains as in a trained ResNet."""
+    ws = [RNG.normal(0, (2 / C) ** 0.5, (nb, C, P)),
+          RNG.uniform(0.5, 1.5, (nb, P)), RNG.normal(0, 0.1, (nb, P)),
+          RNG.normal(0, (2 / (9 * P)) ** 0.5, (nb, 3, 3, P, P)),
+          RNG.uniform(0.5, 1.5, (nb, P)), RNG.normal(0, 0.1, (nb, P)),
+          RNG.normal(0, (2 / P) ** 0.5, (nb, P, C)),
+          RNG.uniform(0.1, 0.3, (nb, C)), RNG.normal(0, 0.1, (nb, C))]
+    return [torch.tensor(w, dtype=dtype if i in (0, 3, 6) else torch.float32,
+                         device=device) for i, w in enumerate(ws)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # (N, H, W, C, P, nb): the four SimplePose-R50 stage shapes at N = 2
+    # (stage 4: P = 512, the 3x3's K = 4608)
+    (2, 64, 48, 256, 64, 2), (2, 32, 24, 512, 128, 3),
+    (2, 16, 12, 1024, 256, 5), (2, 8, 6, 2048, 512, 2),
+    # H = 1 and W = 1: every 3x3 neighbour but the centre is padding
+    (3, 1, 37, 64, 16, 2), (3, 29, 1, 64, 16, 2),
+    # M = 30 rows, below one 128-row tile
+    (1, 5, 6, 32, 8, 2)])
+def test_chain_kernel_at_stage_and_edge_shapes(cuda, dtype, shape):
+    N, H, W, C, P, nb = shape
+    x = torch.tensor(RNG.normal(0, 1, (N, H, W, C)), dtype=dtype,
+                     device=cuda).relu()
+    ws = he_chain_operands(nb, C, P, dtype, cuda)
+    reset_launch_counts()
+    got = fused_bottleneck_chain(x, *ws)
+    assert fused_bottleneck_chain.launches == 1
+    ref = bottleneck_chain_reference(x, *ws)
+    err = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    # f32 (3xTF32 against cuDNN in full f32): of the order of f32 rounding;
+    # bf16: one-ulp flips of the epilogues' rounding propagate
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert err.max().item() <= 5e-2 * scale
+        assert err.mean().item() <= 5e-3 * scale
+
+
+@pytest.mark.cuda
+def test_chain_wrapper_refuses_channels_the_kernel_cannot_take(cuda):
+    # P = 12: the kernel's TMA rows need multiples of 8 channels
+    ws = chain_operands(2, 48, 12, torch.float32, cuda)
+    x = torch.tensor(RNG.normal(0, 1, (1, 3, 4, 48)), dtype=torch.float32,
+                     device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_bottleneck_chain(x, *ws)
+    assert fused_bottleneck_chain.launches == 0
+    cpu = [w.cpu() for w in ws]
+    torch.testing.assert_close(fused_bottleneck_chain(x.cpu(), *cpu),
+                               bottleneck_chain_reference(x.cpu(), *cpu))
+
+
 def planted_heatmaps(n, k, h, w):
     """Noise plus an all-negative sample, tied maxima, maxima on the
     border and in corners, a quantized sample full of ties and an all-zero

@@ -91,6 +91,40 @@ class TestChain:
         np.testing.assert_allclose(b.numpy(), np.asarray(rb), rtol=2e-6,
                                    atol=2e-6)
 
+    def test_k_major_weights_give_the_kernels_gemms(self):
+        """The CUDA kernel's three products as plain GEMMs over the
+        K-major weights the wrapper lays out (w2: k = tap * P + ci, the
+        3x3 as an im2col with zero padding) equal the convolutions of the
+        plain version."""
+        import torch.nn.functional as F
+        from vatl4pose_tpu_torch.kernels.fused_bottleneck import _k_major
+        N, H, W, C, P = 2, 5, 3, 16, 8
+        x = torch.tensor(RNG.normal(0, 1, (N, H, W, C)), dtype=torch.float64)
+        w1, _, _, w2, _, _, w3, _, _ = as_torch(folded_weights(2, C, P),
+                                                torch.float64)
+        w1t, w2t, w3t = _k_major(w1, w2, w3)
+        assert w2t.shape == (2, P, 9, P) and w2t.is_contiguous()
+        nchw = x.permute(0, 3, 1, 2)
+        y = x[..., :P]
+        pad = F.pad(y, (0, 0, 1, 1, 1, 1))       # zero rows and columns
+        im2col = torch.cat([pad[:, dy:dy + H, dx:dx + W]
+                            for dy in range(3) for dx in range(3)], -1)
+        for i in range(2):
+            got1 = x.reshape(-1, C) @ w1t[i].t()
+            ref1 = F.conv2d(nchw, w1[i].t()[:, :, None, None])
+            torch.testing.assert_close(
+                got1, ref1.permute(0, 2, 3, 1).reshape(-1, P))
+            got2 = im2col.reshape(-1, 9 * P) @ w2t[i].reshape(P, -1).t()
+            ref2 = F.conv2d(y.permute(0, 3, 1, 2),
+                            w2[i].permute(3, 2, 0, 1), padding=1)
+            torch.testing.assert_close(
+                got2, ref2.permute(0, 2, 3, 1).reshape(-1, P))
+            got3 = y.reshape(-1, P) @ w3t[i].t()
+            ref3 = F.conv2d(y.permute(0, 3, 1, 2),
+                            w3[i].t()[:, :, None, None])
+            torch.testing.assert_close(
+                got3, ref3.permute(0, 2, 3, 1).reshape(-1, C))
+
     def test_cpu_takes_plain_version_and_counts_nothing(self):
         reset_launch_counts()
         x = torch.randn(1, 4, 4, 8)

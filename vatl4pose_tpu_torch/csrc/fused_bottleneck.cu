@@ -1,40 +1,61 @@
-// Folded-BN ResNet bottleneck chain for Hopper (sm_90a).
+// Folded-BN ResNet bottleneck chain for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces: vatl4pose_tpu/kernels/fused_bottleneck.py, `_kernel` called
 // through `fused_bottleneck_chain` (the Pallas TPU kernel).
 //
 // What it computes: nb chained stride-1, non-downsampling bottlenecks over
 // an NHWC stream x (N, H, W, C) with eval BatchNorm folded to per-channel
-// scale/bias (s, b).  Per block, with P = C / 4 planes:
+// scale/bias (s, b).  Per block, with P planes:
 //   y1  = relu(conv1x1(x, w1) * s1 + b1)                  -> stream dtype
 //   y2  = relu(conv3x3(y1, w2, pad 1) * s2 + b2)          -> stream dtype
 //   out = relu(conv1x1(y2, w3) * s3 + b3 + x)             -> stream dtype
 // Products are accumulated in f32 and every epilogue runs in f32 before the
 // cast back to the stream dtype (float or bf16), as in the TPU kernel.
 //
-// What bounds it on the card: at the shapes of SimplePose-R50 the work is
-// 2*N*H*W*(2*C*P + 9*P*P) FLOPs per block against one read and one write of
-// the stream, i.e. 40-400 FLOPs per byte: compute-bound in both dtypes.
-// The tensor cores are the card's ceiling (989 TFLOP/s bf16), and in f32
-// with TF32 off the 67 TFLOP/s of the CUDA cores.
+// What bounds it on the card: 2*N*H*W*(2*C*P + 9*P*P) FLOPs per block.  In
+// bf16 the tensor cores' 989 TFLOP/s; in f32 parity mode three TF32
+// products per product (below) at 495 TFLOP/s.  This design writes y1 and
+// y2 to device memory and reads the stream twice per block, 4 stream sizes
+// of traffic per block, so at R50's first stage it is bound by bytes.
 //
-// What this design does about it: each of the three products is one tiled
-// shared-memory GEMM on the CUDA cores (64x64 output tile, k-step 16, 4x4
-// outputs per thread, f32 accumulators in registers) with the folded BN,
-// the residual add and the ReLU fused into its epilogue, so no separate
-// elementwise pass touches device memory.  The 3x3 conv is an implicit
-// GEMM over the 9 taps: the A tile is gathered from y1 on the fly and the
-// zero padding is a masked load, not a padded copy.  The intermediates y1
-// and y2 go through device memory; block 0 writes `out`, and every later
-// block updates `out` in place (each thread reads its residual element
-// before it overwrites it).  Tensor-core (wgmma) tiles, TMA and keeping the
-// residual stream on chip are the next steps.
+// What this design does about it: each of the three products of a block is
+// one implicit-GEMM launch on the tensor cores.  A CTA owns 128 pixel rows x
+// BN output channels (BN = 64 when the product has at most 64 output
+// channels, else 128) and runs 384 threads: two consumer warpgroups, 64
+// rows each, issue wgmma (m64nBNk16 bf16, or m64nBNk8 tf32) on 128-byte
+// swizzled tiles in shared memory; one producer warpgroup keeps an
+// S-stage ring of tiles in flight, handed over by full/empty mbarriers.
+// One K step is one 128-byte swizzle row: 64 bf16 or 32 f32 channels.
+//   - 1x1 products: A (stream rows, K = input channels) and B (the K-major
+//     weights) come by TMA; its zero fill out of bounds covers the ragged
+//     M, K and N edges.
+//   - 3x3 product: an implicit GEMM over K = 9*P, tap-major.  The producer
+//     warpgroup gathers each (tap, channel block) A tile with 16-byte
+//     cp.async copies into the same swizzle; a tap outside the image (the
+//     row above or below, or the left/right neighbour that lies in another
+//     pixel row), a row past M and channels past P are zero-fill copies
+//     (src-size 0).  B comes by TMA from a 4-D map, whose bounds zero the
+//     channels past P.
+//   - f32: 3xTF32.  The consumers split every tile that lands into
+//     hi = tf32_rna(a), written in place, and lo = tf32_rna(a - hi), in a
+//     second buffer, and accumulate a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi:
+//     the error is of the order of f32 rounding, not of TF32's.
+//   - Epilogue: acc*s + b in f32 is staged in shared memory (the ring's
+//     memory, free by then), then each thread takes 16 bytes of a row: adds
+//     the residual, ReLU, rounds (__float2bfloat16_rn for bf16) and stores
+//     16 bytes.  Block 0 writes `out`; every later block updates `out` in
+//     place: each residual element is read, then written, by one thread.
+// Keeping the stream on chip across blocks, as the TPU kernel did in VMEM,
+// is the next step.
 //
-// Weight layouts: w1 (nb, C, P), w2 (nb, 3, 3, P, P), w3 (nb, P, C) in the
-// stream dtype, row-major; s1/b1/s2/b2 (nb, P) and s3/b3 (nb, C) in f32.
-// Each C entry launches 3*nb kernels on the caller's stream and returns
-// cudaGetLastError().
+// Weight layouts (K-major, laid out by the wrapper): w1t (nb, P, C),
+// w2t (nb, P, 9, P) with k = tap*P + ci, w3t (nb, C, P) in the stream dtype;
+// s1/b1/s2/b2 (nb, P) and s3/b3 (nb, C) in f32.  C and P are multiples of 8
+// (16-byte TMA strides).  Each C entry builds its TMA descriptors on the
+// host (cuTensorMapEncodeTiled, fetched through the runtime, so no -lcuda),
+// launches 3*nb kernels on the caller's stream and returns a cudaError_t.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,173 +63,676 @@
 
 namespace {
 
-constexpr int BM = 64;        // output rows (pixels) per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 16;        // reduction step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PAD = 4;        // keeps float4 rows 16-byte aligned
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int BM = 128;          // pixel rows per CTA
+constexpr int ROW_BYTES = 128;   // one swizzle row = one K step
+constexpr int K_STEPS = 4;       // wgmmas per K step: 32 bytes of K each
+constexpr int CONSUMERS = 256;   // two warpgroups of wgmma
+constexpr int THREADS = 384;     // + one producer warpgroup
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
+struct Cfg;
 template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
+struct Cfg<__nv_bfloat16> {
+  static constexpr int STAGES = 4;
+  static constexpr bool SPLIT = false;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+struct Cfg<float> {
+  static constexpr int STAGES = 3;   // each stage also holds the lo tiles
+  static constexpr bool SPLIT = true;
+  static constexpr CUtensorMapDataType TMA_TYPE =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
+template <typename T, int BN>
+struct Tile {
+  static constexpr int KB = ROW_BYTES / sizeof(T);   // channels per K step
+  static constexpr int A_BYTES = BM * ROW_BYTES;
+  static constexpr int B_BYTES = BN * ROW_BYTES;
+  // a stage: A, B (and in f32 their lo halves, A_lo then B_lo)
+  static constexpr int STAGE = (A_BYTES + B_BYTES) * (Cfg<T>::SPLIT ? 2 : 1);
+  static constexpr int STAGES = Cfg<T>::STAGES;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int LD = BN + 8;   // floats per staged epilogue row
+  static_assert(BM * LD * 4 <= RING, "the epilogue is staged in the ring");
+  static constexpr int SMEM = RING + 2 * STAGES * 8 + 1024;
+  // cp.async groups the 3x3 producer keeps in flight before it signals
+  static constexpr int LAG = STAGES - 2;
+};
+
+// ---------------------------------------------------------------- PTX ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// out[m, co] = relu(sum_k A[m, k] * wt[k, co] * scale[co] + bias[co]
-//                   (+ res[m, co]))
-// A is the implicit im2col of `in` (M = N*H*W pixel rows of Cin channels)
-// for a KS x KS window, stride 1, zero padding KS/2, with
-// k = (dy * KS + dx) * Cin + ci, which is wt's row-major row order.
-// `res` may alias `out`: each element is read and written by one thread.
-template <typename T, int KS, bool RESIDUAL>
-__global__ void __launch_bounds__(THREADS)
-    conv_bn_relu_kernel(const T* __restrict__ in, const T* __restrict__ wt,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ bias, const T* res, T* out,
-                        int M, int H, int W, int Cin, int Cout) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of the given parity has completed; a wait of more
+// than about 10 s (a pipeline fault) traps, so that the launch fails
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  do {
+    if (clock64() - t0 > 20000000000ll) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 16-byte copy; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (wgmma reads)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across the async
+// wgmma issue and wait
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma operand descriptor of a K-major tile whose rows are 128 bytes,
+// 128-byte swizzled, 8-row groups 1024 bytes apart; the tile starts on a
+// 1024-byte boundary.  Adding 2 moves it 32 bytes (one K step) along K.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
+         (1ull << 62);
+}
+
+#define ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define ACC16(d, i) ACC4(d, i), ACC4(d, i + 4), ACC4(d, i + 8), ACC4(d, i + 12)
+#define ACC32(d) ACC16(d, 0), ACC16(d, 16)
+#define ACC64(d) ACC32(d), ACC16(d, 32), ACC16(d, 48)
+
+// d (64 x BN f32 per warpgroup) += A (64 x K-step) * B (BN x K-step)^T,
+// both operands K-major in shared memory
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : ACC64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+template <typename T, int BN>
+struct Mma;
+template <>
+struct Mma<__nv_bfloat16, 64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    wgmma_bf16_n64(d, a, b);
+  }
+};
+template <>
+struct Mma<__nv_bfloat16, 128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    wgmma_bf16_n128(d, a, b);
+  }
+};
+template <>
+struct Mma<float, 64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b) {
+    wgmma_tf32_n64(d, a, b);
+  }
+};
+template <>
+struct Mma<float, 128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    wgmma_tf32_n128(d, a, b);
+  }
+};
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split(float v, float& hi, float& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - hi);
+}
+
+// 3xTF32: tile -> hi in place, lo into `lo`, 16 bytes a thread at a time
+__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo,
+                                           int bytes, int idx, int nthreads) {
+  float4* h4 = reinterpret_cast<float4*>(tile);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  for (int i = idx; i < bytes / 16; i += nthreads) {
+    const float4 v = h4[i];
+    float4 h, l;
+    split(v.x, h.x, l.x);
+    split(v.y, h.y, l.y);
+    split(v.z, h.z, l.z);
+    split(v.w, h.w, l.w);
+    h4[i] = h;
+    l4[i] = l;
+  }
+}
+
+// out[0:4] = relu(y + res), 16 bytes of f32
+template <bool RESIDUAL>
+__device__ __forceinline__ void store_out(const float* y, const float* res,
+                                          float* out) {
+  float4 v = *reinterpret_cast<const float4*>(y);
+  if (RESIDUAL) {
+    const float4 r = *reinterpret_cast<const float4*>(res);
+    v.x = __fadd_rn(v.x, r.x);
+    v.y = __fadd_rn(v.y, r.y);
+    v.z = __fadd_rn(v.z, r.z);
+    v.w = __fadd_rn(v.w, r.w);
+  }
+  *reinterpret_cast<float4*>(out) = make_float4(
+      fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+}
+
+// out[0:8] = bf16(relu(y + res)), 16 bytes of bf16
+template <bool RESIDUAL>
+__device__ __forceinline__ void store_out(const float* y,
+                                          const __nv_bfloat16* res,
+                                          __nv_bfloat16* out) {
+  float v[8];
+  const float4 y0 = *reinterpret_cast<const float4*>(y);
+  const float4 y1 = *reinterpret_cast<const float4*>(y + 4);
+  v[0] = y0.x, v[1] = y0.y, v[2] = y0.z, v[3] = y0.w;
+  v[4] = y1.x, v[5] = y1.y, v[6] = y1.z, v[7] = y1.w;
+  if (RESIDUAL) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(res);
+    const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], __bfloat162float(r[i]));
+  }
+  uint4 packed;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16_rn(fmaxf(v[i], 0.f));
+  *reinterpret_cast<uint4*>(out) = packed;
+}
+
+// ------------------------------------------------------------- kernel ----
+
+// out[m, n] = relu(sum_k A[m, k] * B[n, k] * scale[n] + bias[n]
+//                  (+ res[m, n])) for m < M, n < Cout.
+// CONV3 = false: A is the (M, Cin) matrix of a_map, K = Cin.
+// CONV3 = true: A is the implicit im2col of `in` (M pixel rows of Cin
+// channels, images of H x W) for a 3x3 window with zero padding 1,
+// k = tap * Cin + ci; b_map is 4-D (Cin, 9, Cout, nb).
+// B is block `blk` of b_map, K-major.  `res` may alias `out`.
+template <typename T, int BN, bool CONV3, bool RESIDUAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap b_map,
+                     const T* __restrict__ in, const float* __restrict__ scale,
+                     const float* __restrict__ bias, const T* res, T* out,
+                     int M, int H, int W, int Cin, int Cout, int blk) {
+  using TL = Tile<T, BN>;
+  constexpr int S = TL::STAGES;
+  constexpr int KB = TL::KB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TL::RING);
+  uint64_t* empty = full + S;
+
+  const int n_tiles = (Cout + BN - 1) / BN;
+  const int n0 = (blockIdx.x % n_tiles) * BN;   // the N tiles of one M
+  const int m0 = (blockIdx.x / n_tiles) * BM;   // tile run side by side
+  const int kblocks = (Cin + KB - 1) / KB;      // K steps per tap
+  const int nk = CONV3 ? 9 * kblocks : kblocks;
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int K = KS * KS * Cin;
 
-  // A loader: one pixel row, four consecutive k
-  const int a_row = tid >> 2;
-  const int a_k = (tid & 3) * 4;
-  const int am = m0 + a_row;
-  const bool a_valid = am < M;
-  int ah = 0, aw = 0;
-  if (KS > 1 && a_valid) {
-    const int hw = am % (H * W);
-    ah = hw / W;
-    aw = hw - ah * W;
-  }
-  // B loader: one k row, four consecutive output channels
-  const int b_k = tid >> 4;
-  const int b_n = (tid & 15) * 4;
-  // compute: rows ty*4 .. ty*4+3, channels tx*4 .. tx*4+3
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + a_k + j;
-      float v = 0.f;
-      if (a_valid && k < K) {
-        if (KS == 1) {
-          v = to_f32(in[(int64_t)am * Cin + k]);
-        } else {
-          const int tap = k / Cin;
-          const int ci = k - tap * Cin;
-          const int dy = tap / KS - KS / 2;
-          const int dx = tap % KS - KS / 2;
-          const int hh = ah + dy;
-          const int ww = aw + dx;
-          if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-            v = to_f32(in[((int64_t)am + (int64_t)dy * W + dx) * Cin + ci]);
-        }
-      }
-      As[a_k + j][a_row] = v;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      // full: the TMA arrival (+ one per gathering thread for the 3x3)
+      mbar_init(&full[s], CONV3 ? 1 + 128 : 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    {
-      const int k = k0 + b_k;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---------------------------------------------------- producer ----
+    const int p = tid - CONSUMERS;
+    if (!CONV3) {
+      if (p != 0) return;
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % S;
+        if (kb >= S) mbar_wait(&empty[s], (kb / S - 1) & 1);
+        uint8_t* a_dst = smem + s * TL::STAGE;
+        mbar_expect_tx(&full[s], TL::A_BYTES + TL::B_BYTES);
+        tma_load_2d(a_dst, &a_map, &full[s], kb * KB, m0);
+        tma_load_3d(a_dst + TL::A_BYTES, &b_map, &full[s], kb * KB, n0, blk);
+      }
+      return;
+    }
+    // 3x3: thread p copies 16-byte chunk p % 8 of rows p / 8 + 16 i
+    constexpr int VEC = 16 / sizeof(T);
+    const int chunk = p & 7;
+    int pos[8];   // (h << 16) | w of each row, -1 past M
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + b_n + j;
-        Bs[b_k][b_n + j] =
-            (k < K && n < Cout) ? to_f32(wt[(int64_t)k * Cout + n]) : 0.f;
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (p >> 3) + 16 * i;
+      if (m < M) {
+        const int hw = m % (H * W);
+        const int h = hw / W;
+        pos[i] = (h << 16) | (hw - h * W);
+      } else {
+        pos[i] = -1;
       }
     }
-    __syncthreads();
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % S;
+      if (kb >= S) mbar_wait(&empty[s], (kb / S - 1) & 1);
+      uint8_t* a_dst = smem + s * TL::STAGE;
+      const int tap = kb / kblocks;
+      const int c0 = (kb - tap * kblocks) * KB;
+      if (p == 0) {
+        mbar_expect_tx(&full[s], TL::B_BYTES);
+        tma_load_4d(a_dst + TL::A_BYTES, &b_map, &full[s], c0, tap, n0, blk);
+      }
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const int c = c0 + chunk * VEC;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i) {
+        const int r = (p >> 3) + 16 * i;
+        const int h = pos[i] >> 16, w = pos[i] & 0xFFFF;
+        const bool ok = pos[i] >= 0 && c < Cin &&
+                        (unsigned)(h + dy) < (unsigned)H &&
+                        (unsigned)(w + dx) < (unsigned)W;
+        const T* src =
+            ok ? in + ((int64_t)(m0 + r) + dy * W + dx) * Cin + c : in;
+        cp_async_16(a_dst + r * ROW_BYTES + ((chunk ^ (r & 7)) << 4), src,
+                    ok ? 16 : 0);
+      }
+      cp_async_commit();
+      if (kb >= TL::LAG) {
+        // the copies of step kb - LAG have landed: hand them over
+        cp_async_wait<TL::LAG>();
+        fence_async_shared();
+        mbar_arrive(&full[(kb - TL::LAG) % S]);
+      }
     }
-    __syncthreads();
+    cp_async_wait<0>();
+    fence_async_shared();
+    for (int kb = nk > TL::LAG ? nk - TL::LAG : 0; kb < nk; ++kb)
+      mbar_arrive(&full[kb % S]);
+    return;
   }
 
+  // ------------------------------------------------------ consumers ----
+  const int g = tid >> 7;   // warpgroup: rows 64 g .. 64 g + 63
+  const int t = tid & 127;
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % S;
+    mbar_wait(&full[s], (kb / S) & 1);
+    uint8_t* a_tile = smem + s * TL::STAGE + g * (TL::A_BYTES / 2);
+    uint8_t* b_tile = smem + s * TL::STAGE + TL::A_BYTES;
+    if (CONV3) fence_async_shared();
+    fence_operands(acc);
+    if constexpr (Cfg<T>::SPLIT) {
+      uint8_t* a_lo = b_tile + TL::B_BYTES + g * (TL::A_BYTES / 2);
+      uint8_t* b_lo = b_tile + TL::B_BYTES + TL::A_BYTES;
+      split_tile(a_tile, a_lo, TL::A_BYTES / 2, t, 128);
+      split_tile(b_tile, b_lo, TL::B_BYTES, tid, CONSUMERS);
+      fence_async_shared();
+      named_sync(1, CONSUMERS);   // both halves of B are split
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= Cout) continue;
-      const int64_t o = (int64_t)m * Cout + n;
-      float v = acc[i][j] * scale[n] + bias[n];
-      if (RESIDUAL) v = v + to_f32(res[o]);
-      out[o] = from_f32<T>(fmaxf(v, 0.f));
+      for (int kk = 0; kk < K_STEPS; ++kk) {
+        const uint64_t da = smem_desc(a_tile) + 2 * kk;
+        const uint64_t db = smem_desc(b_tile) + 2 * kk;
+        // the small terms first, then hi * hi
+        Mma<T, BN>::run(acc, smem_desc(a_lo) + 2 * kk, db);
+        Mma<T, BN>::run(acc, da, smem_desc(b_lo) + 2 * kk);
+        Mma<T, BN>::run(acc, da, db);
+      }
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < K_STEPS; ++kk)
+        Mma<T, BN>::run(acc, smem_desc(a_tile) + 2 * kk,
+                        smem_desc(b_tile) + 2 * kk);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+  // both warpgroups are done with the ring: it becomes the staging tile
+  named_sync(1, CONSUMERS);
+  float* stg = reinterpret_cast<float*>(smem);
+  constexpr int LD = TL::LD;
+  const int warp = t >> 5, lane = t & 31;
+  const int r0 = g * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + (lane & 3) * 2;
+    const int n = n0 + c;
+    float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
+    if (n < Cout) {   // Cout is even: n + 1 < Cout too
+      s0 = scale[n], s1 = scale[n + 1], b0 = bias[n], b1 = bias[n + 1];
+    }
+    *reinterpret_cast<float2*>(&stg[r0 * LD + c]) =
+        make_float2(__fadd_rn(__fmul_rn(acc[4 * j], s0), b0),
+                    __fadd_rn(__fmul_rn(acc[4 * j + 1], s1), b1));
+    *reinterpret_cast<float2*>(&stg[(r0 + 8) * LD + c]) =
+        make_float2(__fadd_rn(__fmul_rn(acc[4 * j + 2], s0), b0),
+                    __fadd_rn(__fmul_rn(acc[4 * j + 3], s1), b1));
+  }
+  named_sync(2 + g, 128);
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = BN / VEC;   // 16-byte output chunks per row
+  for (int i = t; i < 64 * CPR; i += 128) {
+    const int r = g * 64 + i / CPR;
+    const int c = (i % CPR) * VEC;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= Cout) continue;
+    const int64_t o = (int64_t)m * Cout + n;
+    store_out<RESIDUAL>(&stg[r * LD + c], res + o, out + o);
   }
 }
 
+// --------------------------------------------------------------- host ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a tiled, 128-byte swizzled map; zero fill out of bounds
 template <typename T>
-cudaError_t run_chain(const T* x, T* out, T* y1, T* y2, const T* w1,
-                      const float* s1, const float* b1, const T* w2,
-                      const float* s2, const float* b2, const T* w3,
+bool encode(CUtensorMap* map, const void* ptr, cuuint32_t rank,
+            const cuuint64_t* dims, const cuuint64_t* strides,
+            const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(map, Cfg<T>::TMA_TYPE, rank, const_cast<void*>(ptr), dims,
+            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int bn_for(int cout) { return cout <= 64 ? 64 : 128; }
+
+template <typename T, int BN, bool CONV3, bool RESIDUAL>
+cudaError_t launch(const CUtensorMap& a, const CUtensorMap& b, const T* in,
+                   const float* s, const float* bias, const T* res, T* out,
+                   int M, int H, int W, int Cin, int Cout, int blk,
+                   cudaStream_t stream) {
+  auto kernel = conv_gemm_kernel<T, BN, CONV3, RESIDUAL>;
+  constexpr int smem = Tile<T, BN>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      (long long)((M + BM - 1) / BM) * ((Cout + BN - 1) / BN);
+  kernel<<<(unsigned)tiles, THREADS, smem, stream>>>(
+      a, b, in, s, bias, res, out, M, H, W, Cin, Cout, blk);
+  return cudaGetLastError();
+}
+
+template <typename T, bool CONV3, bool RESIDUAL>
+cudaError_t conv(const CUtensorMap& a, const CUtensorMap& b, const T* in,
+                 const float* s, const float* bias, const T* res, T* out,
+                 int M, int H, int W, int Cin, int Cout, int blk,
+                 cudaStream_t stream) {
+  return bn_for(Cout) == 64
+             ? launch<T, 64, CONV3, RESIDUAL>(a, b, in, s, bias, res, out, M,
+                                              H, W, Cin, Cout, blk, stream)
+             : launch<T, 128, CONV3, RESIDUAL>(a, b, in, s, bias, res, out, M,
+                                               H, W, Cin, Cout, blk, stream);
+}
+
+template <typename T>
+cudaError_t run_chain(const T* x, T* out, T* y1, T* y2, const T* w1t,
+                      const float* s1, const float* b1, const T* w2t,
+                      const float* s2, const float* b2, const T* w3t,
                       const float* s3, const float* b3, int N, int H, int W,
                       int C, int P, int nb, cudaStream_t stream) {
   const int M = N * H * W;
-  const dim3 block(THREADS);
-  const dim3 grid_p((M + BM - 1) / BM, (P + BN - 1) / BN);
-  const dim3 grid_c((M + BM - 1) / BM, (C + BN - 1) / BN);
+  const cuuint64_t e = sizeof(T);
+  const cuuint32_t kb = ROW_BYTES / sizeof(T);
+  const cuuint32_t bnp = bn_for(P), bnc = bn_for(C);
+  CUtensorMap xa, oa, y2a, w1m, w2m, w3m;
+  bool ok = true;
+  {  // A of the 1x1 products: (M, K) row-major
+    const cuuint64_t dc[2] = {(cuuint64_t)C, (cuuint64_t)M};
+    const cuuint64_t sc[1] = {C * e};
+    const cuuint64_t dp[2] = {(cuuint64_t)P, (cuuint64_t)M};
+    const cuuint64_t sp[1] = {P * e};
+    const cuuint32_t box[2] = {kb, BM};
+    ok = ok && encode<T>(&xa, x, 2, dc, sc, box) &&
+         encode<T>(&oa, out, 2, dc, sc, box) &&
+         encode<T>(&y2a, y2, 2, dp, sp, box);
+  }
+  {  // B: w1t (nb, P, C), w3t (nb, C, P), w2t (nb, P, 9, P)
+    const cuuint64_t d1[3] = {(cuuint64_t)C, (cuuint64_t)P, (cuuint64_t)nb};
+    const cuuint64_t s1b[2] = {C * e, (cuuint64_t)P * C * e};
+    const cuuint32_t box1[3] = {kb, bnp, 1};
+    const cuuint64_t d3[3] = {(cuuint64_t)P, (cuuint64_t)C, (cuuint64_t)nb};
+    const cuuint64_t s3b[2] = {P * e, (cuuint64_t)C * P * e};
+    const cuuint32_t box3[3] = {kb, bnc, 1};
+    const cuuint64_t d2[4] = {(cuuint64_t)P, 9, (cuuint64_t)P,
+                              (cuuint64_t)nb};
+    const cuuint64_t s2b[3] = {P * e, 9 * P * e, (cuuint64_t)9 * P * P * e};
+    const cuuint32_t box2[4] = {kb, 1, bnp, 1};
+    ok = ok && encode<T>(&w1m, w1t, 3, d1, s1b, box1) &&
+         encode<T>(&w3m, w3t, 3, d3, s3b, box3) &&
+         encode<T>(&w2m, w2t, 4, d2, s2b, box2);
+  }
+  if (!ok) return cudaErrorInvalidValue;
   const T* cur = x;
   for (int i = 0; i < nb; ++i) {
-    conv_bn_relu_kernel<T, 1, false><<<grid_p, block, 0, stream>>>(
-        cur, w1 + (int64_t)i * C * P, s1 + (int64_t)i * P,
-        b1 + (int64_t)i * P, nullptr, y1, M, H, W, C, P);
-    conv_bn_relu_kernel<T, 3, false><<<grid_p, block, 0, stream>>>(
-        y1, w2 + (int64_t)i * 9 * P * P, s2 + (int64_t)i * P,
-        b2 + (int64_t)i * P, nullptr, y2, M, H, W, P, P);
-    conv_bn_relu_kernel<T, 1, true><<<grid_c, block, 0, stream>>>(
-        y2, w3 + (int64_t)i * P * C, s3 + (int64_t)i * C,
-        b3 + (int64_t)i * C, cur, out, M, H, W, P, C);
-    const cudaError_t err = cudaGetLastError();
+    cudaError_t err = conv<T, false, false>(
+        i == 0 ? xa : oa, w1m, nullptr, s1 + (int64_t)i * P,
+        b1 + (int64_t)i * P, nullptr, y1, M, H, W, C, P, i, stream);
+    if (err != cudaSuccess) return err;
+    err = conv<T, true, false>(w2m, w2m, y1, s2 + (int64_t)i * P,
+                               b2 + (int64_t)i * P, nullptr, y2, M, H, W, P,
+                               P, i, stream);
+    if (err != cudaSuccess) return err;
+    err = conv<T, false, true>(y2a, w3m, nullptr, s3 + (int64_t)i * C,
+                               b3 + (int64_t)i * C, cur, out, M, H, W, P, C,
+                               i, stream);
     if (err != cudaSuccess) return err;
     cur = out;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 }  // namespace
 
 #define CHAIN_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const void* x, void* out, void* y1, void* y2,           \
-                      const void* w1, const void* s1, const void* b1,         \
-                      const void* w2, const void* s2, const void* b2,         \
-                      const void* w3, const void* s3, const void* b3, int N,  \
+                      const void* w1t, const void* s1, const void* b1,        \
+                      const void* w2t, const void* s2, const void* b2,        \
+                      const void* w3t, const void* s3, const void* b3, int N, \
                       int H, int W, int C, int P, int nb, void* stream) {     \
     return (int)run_chain<T>(                                                 \
-        (const T*)x, (T*)out, (T*)y1, (T*)y2, (const T*)w1,                   \
-        (const float*)s1, (const float*)b1, (const T*)w2, (const float*)s2,   \
-        (const float*)b2, (const T*)w3, (const float*)s3, (const float*)b3,   \
+        (const T*)x, (T*)out, (T*)y1, (T*)y2, (const T*)w1t,                  \
+        (const float*)s1, (const float*)b1, (const T*)w2t, (const float*)s2,  \
+        (const float*)b2, (const T*)w3t, (const float*)s3, (const float*)b3,  \
         N, H, W, C, P, nb, (cudaStream_t)stream);                             \
   }
 

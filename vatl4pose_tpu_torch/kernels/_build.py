@@ -57,7 +57,7 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
@@ -72,7 +72,7 @@ def build(names: Iterable[str] = tuple(SIGNATURES), verbose: bool = False):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in names:
-            lib = _lib_path(name)
+            lib = lib_path(name)
             if lib.exists() and not verbose:
                 continue
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -101,7 +101,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    path = _lib_path(name)
+    path = lib_path(name)
     if not path.exists():
         build([name])
     with _lock:

@@ -10,7 +10,9 @@ Each block is conv1x1·s+b, ReLU; conv3x3·s+b, ReLU; conv1x1·s+b,
 to the stream dtype.  Used by models/resnet.py when `fused_eval=True`.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors; any other device raises.
+version only for CPU tensors; any other device raises, and so do CUDA
+operands the kernel does not take (C or P not a multiple of 8: its TMA
+rows need 16-byte strides).
 """
 
 from __future__ import annotations
@@ -73,6 +75,15 @@ def _check_operands(x, ws):
     return N, H, W, C, P, nb
 
 
+def _k_major(w1, w2, w3):
+    """The kernel's B operands, K contiguous: w1t (nb, P, C), w2t
+    (nb, P, 9, P) with k = tap * P + ci, w3t (nb, C, P)."""
+    nb, _, _, P, _ = w2.shape
+    return (w1.transpose(1, 2).contiguous(),
+            w2.permute(0, 4, 1, 2, 3).reshape(nb, P, 9, P).contiguous(),
+            w3.transpose(1, 2).contiguous())
+
+
 def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     """Run nb chained bottlenecks over x: (N, H, W, C) float32 or bf16.
 
@@ -85,6 +96,12 @@ def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     N, H, W, C, P, nb = _check_operands(x, ws)
+    if C % 8 or P % 8:
+        raise ValueError(f"the chain kernel needs C and P to be multiples "
+                         f"of 8, got C={C}, P={P}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+    w1t, w2t, w3t = _k_major(w1, w2, w3)
     lib = _build.load("fused_bottleneck")
     fn = (lib.fused_bottleneck_chain_f32 if x.dtype == torch.float32
           else lib.fused_bottleneck_chain_bf16)
@@ -94,7 +111,8 @@ def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-                 *(w.data_ptr() for w in ws), N, H, W, C, P, nb, stream)
+                 *(w.data_ptr() for w in (w1t, s1, b1, w2t, s2, b2, w3t, s3,
+                                          b3)), N, H, W, C, P, nb, stream)
     _build.check(err, "fused_bottleneck_chain")
     fused_bottleneck_chain.launches += 1
     return out
