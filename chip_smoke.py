@@ -12,16 +12,22 @@ Phases, each of which fails the run on error, each with its wall time:
   2. kernel vs plain PyTorch version on the card, at the shapes of the
      main paths, with CUDA-event times, bounds and errors: K1 (bottleneck
      chain; beside its bound its design's unfused byte floor, and as a
-     yardstick the same chain through cuDNN), K2 (heatmap post-process;
-     its own device time beside the wrapper's), K3 (training crop; beside
-     it its copy variant and grid_sample as the library yardstick);
+     yardstick the same chain through cuDNN), K2 (heatmap post-process)
+     and K3 (the crop, from uint8 and float32 frames to f32 and bf16
+     crops: the retrain batch of 120 rotated, flipped and edge crops, and
+     the scoring chunk of 512 rot=0 crops; beside it its copy variant,
+     grid_sample as the library yardstick, its bound on these inputs, and
+     at the scoring chunk the einsum crop it replaced, timed and
+     profiled), each K2 and K3 time the kernel's own launches with the
+     wrapper's time beside it;
   3. scoring path: one THC+WPU scoring pass (ScoringEngine, fused_eval) of
      SimplePose-R50 at 256x192 over a synthetic video of 512 samples, in
      f32 parity mode and in bf16, with the launch counters reset before
-     each pass and checked after it; outputs checked for shape and
-     finiteness; warm samples/s and a torch.profiler breakdown of one warm
-     pass; the first 32 samples' heatmaps and embeddings held against the
-     same port run on the CPU;
+     each pass and checked after it (K1, K2 and K3 each launched);
+     outputs checked for shape and finiteness; warm samples/s and a
+     torch.profiler breakdown of one warm pass, which must run no
+     aten::einsum; the first 32 samples' heatmaps and embeddings held
+     against the same port run on the CPU;
   4. training path: the AL round's retrain of the phase-3 model (RETRAIN
      of configs/posetrack21/al_simple_posetrack.yaml: batch 120, AdamW,
      3 epochs = 15 steps, every crop through K3, the counters reset
@@ -286,10 +292,10 @@ def planted_heatmaps(gen):
 
 def phase_postprocess_kernel(gen):
     """K2 at (512, 17, 64, 48).  coords and maxvals must be bit-exact; gc
-    is a float sum in another order: rtol 1e-5.  `ms` is the kernels' own
+    is a float sum in another order: rtol 1e-5.  `ms` is the kernel's own
     device time (the raw ctypes launch into preallocated outputs, 20 back
-    to back between two events); the wrapper's time, with its three
-    allocations and its glue ops, is logged beside it."""
+    to back between two events); the wrapper's time, with its output
+    allocation, is logged beside it."""
     import torch
     from vatl4pose_tpu_torch.kernels import _build
     from vatl4pose_tpu_torch.kernels.postprocess import (
@@ -305,7 +311,7 @@ def phase_postprocess_kernel(gen):
     N, K, H, W = hms.shape
     lib = _build.load("postprocess")
     outs = [torch.empty(s, dtype=torch.float32, device="cuda")
-            for s in ((N, 7, K), (N * K, 2), (N,))]
+            for s in ((N, K, 2), (N, K), (N,))]
     stream = torch.cuda.current_stream().cuda_stream
 
     def raw():
@@ -314,14 +320,14 @@ def phase_postprocess_kernel(gen):
             stream), "heatmap_postprocess_f32")
 
     ms = cuda_ms(raw, reps=10, inner=20)
-    wrapper_ms = cuda_ms(lambda: fused_postprocess(hms), reps=20)
+    wrapper_ms = cuda_ms(lambda: fused_postprocess(hms), reps=10, inner=20)
     plain_ms = cuda_ms(lambda: postprocess_reference(hms), reps=10)
-    nbytes = hms.numel() * 4 + (BATCH * 7 * 17 + BATCH * 17 * 2 + BATCH) * 4
+    nbytes = hms.numel() * 4 + (N * K * 2 + N * K + N) * 4
     ops = hms.numel() * 20.0          # ~9 max + compares + adds per pixel
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
     log(f"  K2 {tuple(hms.shape)}: coords/maxvals exact {exact}, gc max "
-        f"rel err {gc_err:.3e}, kernel {ms:.4f} ms (wrapper with glue "
+        f"rel err {gc_err:.3e}, kernel {ms:.4f} ms (wrapper "
         f"{wrapper_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
         f"{max(t_bytes, t_ops):.4f} ms")
     if not exact or gc_err > 1e-5:
@@ -393,72 +399,214 @@ def grid_sample_theta(mats, width, height):
         @ to_pix).astype(np.float32)
 
 
-def phase_rot_warp_kernel(video, seed):
-    """K3 at the training path's shapes: 120 crops of 256x192 from the
-    video's 640x360 uint8 frames.  Tolerance: max |err| <= 1e-3/255 on the
-    normalized output (the coordinates, taps and weights round as in the
-    plain version; only the plain version's /255, a multiply by the
-    reciprocal, rounds otherwise).  Times: the kernel and its copy variant
-    (one tap, no interpolation, the same grid and bytes) 20 launches back
-    to back between two events; the plain version; and as the library
-    yardstick affine_grid + grid_sample (bilinear, zeros, align_corners)
-    on frames gathered and cast to f32 beforehand, untimed."""
-    import numpy as np
+def crop_bound(frames, fi, mats, dtype):
+    """K3's bound on these inputs: the larger of its bytes (every output
+    value written once; every source pixel that a tap of nonzero weight
+    reads, counted once over the batch; the matrices and frame indices)
+    over the HBM rate and about 20 flops per output value over the CUDA
+    cores' rate.  Returns (ms, "bytes" or "operations", source bytes)."""
+    import torch
+    F_, H, W, _ = frames.shape
+    oh, ow = INPUT_SIZE
+    dev = frames.device
+    m = mats[..., None, None]
+    gy, gx = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
+                            torch.arange(ow, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    sx = m[:, 0, 0] * gx + m[:, 0, 1] * gy + m[:, 0, 2]
+    sy = m[:, 1, 0] * gx + m[:, 1, 1] * gy + m[:, 1, 2]
+    x0, y0 = sx.floor(), sy.floor()
+    fx, fy = sx - x0, sy - y0
+    f = fi[:, None, None]
+    touched = torch.zeros(F_ * H * W, dtype=torch.bool, device=dev)
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            x = x0.long() + dx
+            y = y0.long() + dy
+            ok = (x >= 0) & (x < W) & (y >= 0) & (y < H) & (wx * wy > 0) \
+                & (f >= 0) & (f < F_)
+            touched[((f * H + y) * W + x)[ok]] = True
+    src_bytes = touched.sum().item() * 3 * frames.element_size()
+    values = mats.shape[0] * oh * ow * 3
+    nbytes = src_bytes + values * torch.finfo(dtype).bits // 8 \
+        + mats.numel() * 4 + fi.numel() * 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = values * 20.0 / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations", src_bytes
+
+
+def check_crop(label, args, dtype):
+    """K3 against its plain version: f32 within 1e-3/255 (in practice
+    equal: the kernel repeats the plain version's operations and its
+    division by 255), bf16 bit for bit (the f32 crop rounded once)."""
+    import torch
+    from vatl4pose_tpu_torch.kernels import (rot_warp_crop,
+                                             rot_warp_crop_reference)
+    got = rot_warp_crop(*args, dtype=dtype)
+    ref = rot_warp_crop_reference(*args, dtype=dtype)
+    err = (got.float() - ref.float()).abs().max().item()
+    exact = torch.equal(got, ref)
+    log(f"  K3 {label} {str(dtype)[6:]} {tuple(got.shape)}: max|err| "
+        f"{err:.3e}, bit-exact {exact} (f32 tolerance {1e-3 / 255:.3e}, "
+        "bf16 bit-exact)")
+    ok = exact if dtype == torch.bfloat16 else err <= 1e-3 / 255
+    if not ok or not got.float().isfinite().all():
+        raise AssertionError(f"K3 {label} {dtype} disagrees with the plain "
+                             "version")
+    return err
+
+
+def raw_crop(variant, args, dtype):
+    """A K3 entry point launched through ctypes into a preallocated output,
+    so that CUDA events time the kernel and not the wrapper's host work."""
+    import torch
+    from vatl4pose_tpu_torch.kernels import _build
+    from vatl4pose_tpu_torch.kernels.rot_warp import _INV_255
+    from vatl4pose_tpu_torch.ops import RGB_MEAN
+    frames, fi, mats, (oh, ow) = args
+    F_, H, W, _ = frames.shape
+    src = {torch.uint8: "u8", torch.float32: "f32"}[frames.dtype]
+    entry = f"{variant}_{src}_{'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    fn = getattr(_build.load("rot_warp"), entry)
+    out = torch.empty((fi.shape[0], oh, ow, 3), dtype=dtype,
+                      device=frames.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        _build.check(fn(frames.data_ptr(), fi.data_ptr(), mats.data_ptr(),
+                        out.data_ptr(), F_, H, W, fi.shape[0], oh, ow,
+                        _INV_255, *(float(m) for m in RGB_MEAN), stream),
+                     entry)
+    return launch
+
+
+def time_crop(label, args, dtype, library=True):
+    """K3's own device time (raw launches, 20 back to back between two
+    events) and its wrapper's, its copy variant (one tap, no
+    interpolation, the same stores), its plain version and, as the library
+    yardstick, affine_grid + grid_sample (bilinear, zeros, align_corners;
+    f32, on frames gathered and cast beforehand, untimed), with K3's bound
+    on these inputs."""
     import torch
     import torch.nn.functional as F
-    from vatl4pose_tpu_torch.kernels import (rot_warp_copy, rot_warp_crop,
+    from vatl4pose_tpu_torch.kernels import (rot_warp_crop,
                                              rot_warp_crop_reference)
     from vatl4pose_tpu_torch.ops import warp_affine_bilinear_batch
+    frames, fi, mats, out_size = args
+    N = fi.shape[0]
+    oh, ow = out_size
+    res = {"ms": cuda_ms(raw_crop("rot_warp", args, dtype), reps=10,
+                         inner=20),
+           "wrapper_ms": cuda_ms(lambda: rot_warp_crop(*args, dtype=dtype),
+                                 reps=10, inner=20),
+           "copy_ms": cuda_ms(raw_crop("rot_warp_copy", args, dtype),
+                              reps=10, inner=20),
+           "plain_ms": cuda_ms(lambda: rot_warp_crop_reference(
+               *args, dtype=dtype), reps=3, warm=1)}
+    res["bound_ms"], res["bound_by"], src_bytes = crop_bound(frames, fi, mats,
+                                                             dtype)
+    res["library_ms"] = None
+    if library:
+        src = frames[fi].permute(0, 3, 1, 2).float().contiguous()
+        theta = torch.as_tensor(grid_sample_theta(
+            mats.cpu().numpy(), frames.shape[2], frames.shape[1]),
+            device=frames.device)
+
+        def lib_call():
+            grid = F.affine_grid(theta, (N, 3, oh, ow), align_corners=True)
+            return F.grid_sample(src, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+        lib_err = (lib_call().permute(0, 2, 3, 1)
+                   - warp_affine_bilinear_batch(*args)).abs()
+        log(f"  K3 {label} yardstick grid_sample vs plain on [0, 255]: "
+            f"max|err| {lib_err.max().item():.3e} mean "
+            f"{lib_err.mean().item():.3e}")
+        if not lib_err.mean().item() < 1e-2:
+            raise AssertionError("grid_sample's thetas do not give K3's crop")
+        del lib_err
+        res["library_ms"] = cuda_ms(lib_call, reps=10, inner=5)
+        del src
+    # the bound as PRs 2-3 counted it: one source byte an output value
+    res["bound_pr3_ms"] = N * oh * ow * 3 * (torch.finfo(dtype).bits // 8
+                                             + 1) / HBM_BYTES_PER_S * 1e3
+    log(f"  K3 {label} {str(dtype)[6:]} N={N} {oh}x{ow}: kernel "
+        f"{res['ms']:.4f} ms (wrapper {res['wrapper_ms']:.4f} ms), copy "
+        f"variant {res['copy_ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, grid_sample {res['library_ms']} ms; "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"{src_bytes / 1e6:.2f} MB of source tapped; share "
+        f"{res['bound_ms'] / res['ms']:.3f}); one source byte a value: "
+        f"{res['bound_pr3_ms']:.4f} ms")
+    return res
+
+
+def old_scoring_crop(frames, fi, mats, dtype):
+    """The scoring crop before K3 took it: the separable form (the frames
+    gathered per sample, two batched einsums) normalized in `dtype`."""
+    import torch
+    from vatl4pose_tpu_torch.ops import RGB_MEAN, warp_axis_aligned_batch
+    crops = warp_axis_aligned_batch(frames, fi, mats, INPUT_SIZE,
+                                    dtype=dtype)
+    return crops / 255.0 - torch.as_tensor(RGB_MEAN,
+                                           device=frames.device).to(dtype)
+
+
+def phase_rot_warp_kernel(video, seed):
+    """K3 at the main paths' shapes, from the video's 640x360 uint8 frames:
+    the retrain batch (120 crops of 256x192 with the config's rotations,
+    and with flips and edges) in f32; the scoring chunk (512 crops, rot=0
+    matrices from the video's boxes) in f32 and bf16, with the crop it
+    replaced (the einsum form) timed and profiled beside it; and the
+    float32-frame instances on the same inputs."""
+    import torch
+    from vatl4pose_tpu_torch.kernels import rot_warp_crop
+    from vatl4pose_tpu_torch.ops import crop_geometry
     frames = video.frames_dev
     dev = frames.device
-    max_err = 0.0
-    for name, (fi, mats) in crop_batches(video, seed).items():
-        args = (frames, torch.as_tensor(fi, device=dev),
-                torch.as_tensor(mats, device=dev), INPUT_SIZE)
-        got = rot_warp_crop(*args)
-        ref = rot_warp_crop_reference(*args)
-        err = (got - ref).abs().max().item()
-        log(f"  K3 '{name}' {tuple(got.shape)}: max|err| {err:.3e} "
-            f"(tolerance {1e-3 / 255:.3e})")
-        if not err <= 1e-3 / 255 or not got.isfinite().all():
-            raise AssertionError(f"K3 '{name}' disagrees with the plain "
-                                 "version")
-        max_err = max(max_err, err)
-        if name == "train":
-            timed = args
-    N = timed[1].shape[0]
-    oh, ow = INPUT_SIZE
-    ms = cuda_ms(lambda: rot_warp_crop(*timed), reps=10, inner=20)
-    copy_ms = cuda_ms(lambda: rot_warp_copy(*timed), reps=10, inner=20)
-    plain_ms = cuda_ms(lambda: rot_warp_crop_reference(*timed), reps=5)
-    src = frames[timed[1]].permute(0, 3, 1, 2).float().contiguous()
-    theta = torch.as_tensor(grid_sample_theta(
-        timed[2].cpu().numpy(), frames.shape[2], frames.shape[1]),
-        device=dev)
-
-    def library():
-        grid = F.affine_grid(theta, (N, 3, oh, ow), align_corners=True)
-        return F.grid_sample(src, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
-
-    lib_err = (library().permute(0, 2, 3, 1)
-               - warp_affine_bilinear_batch(*timed)).abs()
-    log(f"  K3 yardstick grid_sample vs plain on [0, 255]: max|err| "
-        f"{lib_err.max().item():.3e} mean {lib_err.mean().item():.3e}")
-    if not lib_err.mean().item() < 1e-2:
-        raise AssertionError("grid_sample's thetas do not give K3's crop")
-    library_ms = cuda_ms(library, reps=10, inner=5)
-    del src, lib_err
-    values = N * oh * ow * 3
-    t_bytes = values * (4 + 1) / HBM_BYTES_PER_S * 1e3
-    t_ops = values * 20.0 / F32_FLOPS * 1e3
-    log(f"  K3 N={N} {oh}x{ow}: kernel {ms:.4f} ms, copy variant "
-        f"{copy_ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-        f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms")
-    return {"ms": ms, "copy_ms": copy_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": max_err}
+    frames_f32 = frames.float()
+    max_err = {}
+    batches = {name: (frames, torch.as_tensor(fi, device=dev),
+                      torch.as_tensor(mats, device=dev), INPUT_SIZE)
+               for name, (fi, mats) in crop_batches(video, seed).items()}
+    d = video.data
+    mats, _ = crop_geometry(d.bboxes[:BATCH], INPUT_SIZE, device=dev)
+    scoring = (frames, torch.as_tensor(d.frame_idx[:BATCH], dtype=torch.int64,
+                                       device=dev), mats, INPUT_SIZE)
+    batches["scoring"] = scoring
+    log(f"  K3 scoring chunk: {outside_share(mats.cpu().numpy(), d.width, d.height):.2f}"
+        " of the crops reach outside the frame")
+    for name, args in batches.items():
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for src, a in (("u8", args), ("f32", (frames_f32,) + args[1:])):
+                key = f"{src}_{tag}"
+                err = check_crop(f"'{name}' from {src} frames", a, dtype)
+                max_err[key] = max(max_err.get(key, 0.0), err)
+    res = {"retrain_f32": time_crop("retrain", batches["train"],
+                                    torch.float32),
+           "scoring_f32": time_crop("scoring", scoring, torch.float32),
+           "scoring_bf16": time_crop("scoring", scoring, torch.bfloat16,
+                                     library=False)}
+    res["scoring_bf16"]["library_ms"] = res["scoring_f32"]["library_ms"]
+    f32_args = (frames_f32,) + scoring[1:]
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        r = res[f"scoring_{tag}"]
+        r["from_f32_frames_ms"] = cuda_ms(
+            lambda: rot_warp_crop(*f32_args, dtype=dtype), reps=10, inner=20)
+        r["old_crop_ms"] = cuda_ms(
+            lambda: old_scoring_crop(*scoring[:3], dtype), reps=5)
+        log(f"  K3 scoring {tag}: from float32 frames "
+            f"{r['from_f32_frames_ms']:.4f} ms; the crop it replaced (gather "
+            f"+ two einsums + normalize) {r['old_crop_ms']:.4f} ms")
+        profile_call(lambda: old_scoring_crop(*scoring[:3], dtype),
+                     f"replaced scoring crop {tag}", top=8)
+        r["max_abs_err"] = max_err[f"u8_{tag}"]
+    res["retrain_f32"]["max_abs_err"] = max_err["u8_f32"]
+    res["max_abs_err"] = max_err
+    del frames_f32
+    torch.cuda.empty_cache()
+    return res
 
 
 def randomize_(model, gen):
@@ -568,8 +716,10 @@ def phase_main_path(video, seed):
         rates[mode] = n / statistics.median(times)
         log(f"main path {mode}: warm scoring {rates[mode]:.1f} samples/s "
             f"({n} samples, median of 3: {statistics.median(times):.3f} s)")
-        profile_call(lambda: engine.score(*args, keep_heatmaps=False),
-                     f"scoring pass {mode}")
+        if profile_call(lambda: engine.score(*args, keep_heatmaps=False),
+                        f"scoring pass {mode}"):
+            raise AssertionError(f"{mode}: the scoring pass ran an einsum "
+                                 "(the crop K3 replaced)")
         results[mode] = res
 
     # the same port on the CPU, first 32 samples, f32 (plain versions)
@@ -593,14 +743,16 @@ def phase_main_path(video, seed):
 
 def check_scoring_launches(counts, what):
     if counts["fused_bottleneck_chain"] == 0 \
-            or counts["fused_postprocess"] == 0:
+            or counts["fused_postprocess"] == 0 \
+            or counts["rot_warp_crop"] == 0:
         raise AssertionError(f"{what}: a kernel of the path never ran")
 
 
-def profile_call(fn, label, top=12):
-    """fn() once more under torch.profiler: device time by kernel, and the
-    share of its wall time (profiler overhead included) in which the card
-    ran nothing."""
+def profile_call(fn, label, top=12, show=("rot_warp", "heatmap_postprocess")):
+    """fn() once more under torch.profiler: device time by kernel (the top
+    rows, and any row naming one of `show`), the share of its wall time
+    (profiler overhead included) in which the card ran nothing, and the
+    count of aten::einsum calls, which it returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -610,19 +762,25 @@ def profile_call(fn, label, top=12):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages()
+    events = prof.key_averages()
+    einsums = sum(e.count for e in events if e.key == "aten::einsum")
+    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
     if not dev:
         log(f"profile {label}: the profiler recorded no device time "
-            "(breakdown not measured)")
-        return
+            f"(breakdown not measured); aten::einsum calls {einsums}")
+        return einsums
     busy = sum(t for _, t, _ in dev)
     log(f"profile {label}: wall {wall_ms:.1f} ms under the profiler, "
-        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
-    for key, t, count in sorted(dev, key=lambda r: -r[1])[:top]:
-        log(f"  {t:9.3f} ms {100 * t / busy:5.1f}% x{count:<4d} {key[:110]}")
+        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"aten::einsum calls {einsums}")
+    rows = sorted(dev, key=lambda r: -r[1])
+    for i, (key, t, count) in enumerate(rows):
+        if i < top or any(k in key for k in show):
+            log(f"  {t:9.3f} ms {100 * t / busy:5.1f}% x{count:<4d} "
+                f"{key[:110]}")
+    return einsums
 
 
 def make_retrainer(model, video, device=None, seed=166):
@@ -904,21 +1062,32 @@ def main():
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None})
-    # replaces the shear kernels of rot_warp.py:459 and :162 (one function)
-    kernels.append({
-        "name": "rot_warp_f32", "route": "cuda",
-        "source": "vatl4pose_tpu_torch/csrc/rot_warp.cu",
-        "replaces": "vatl4pose_tpu/kernels/rot_warp.py:459",
-        "launches": train["k3_launches"],
-        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]})
+    # K3's instances on the main paths (the float32-frame instances and the
+    # copy variants run in phase 2 only); both replace the shear kernels of
+    # rot_warp.py:459 and :162 (one function).  ms and bound at the shape
+    # the instance launches at most: the retrain batch for u8_f32, the
+    # scoring chunk for u8_bf16
+    k3_launches = {"u8_f32": {"retrain": train["k3_launches"],
+                              "scoring_f32": counts["f32"]["rot_warp_crop"]},
+                   "u8_bf16": {"scoring_bf16":
+                               counts["bf16"]["rot_warp_crop"]}}
+    for inst, shape in (("u8_f32", "retrain_f32"),
+                        ("u8_bf16", "scoring_bf16")):
+        r = k3[shape]
+        kernels.append({
+            "name": f"rot_warp_{inst}", "route": "cuda",
+            "source": "vatl4pose_tpu_torch/csrc/rot_warp.cu",
+            "replaces": "vatl4pose_tpu/kernels/rot_warp.py:459",
+            "launches": sum(k3_launches[inst].values()),
+            "launches_by_path": k3_launches[inst],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
                     "k1_unfused_floor_ms": {m: k1[m]["floor_ms"] for m in k1},
                     "k1_cudnn_chain_ms": {m: k1[m]["cudnn_ms"] for m in k1},
-                    "k2_wrapper_ms": k2["wrapper_ms"],
-                    "k3_copy_ms": k3["copy_ms"], "card": card,
-                    "wall_s": time.perf_counter() - t_run}))
+                    "k2_wrapper_ms": k2["wrapper_ms"], "k3": k3,
+                    "card": card, "wall_s": time.perf_counter() - t_run}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

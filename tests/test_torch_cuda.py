@@ -202,9 +202,159 @@ def test_rot_warp_wrapper_refuses_bad_operands(cuda):
     frames = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=cuda)
     fi = torch.zeros(1, dtype=torch.int64, device=cuda)
     mats = torch.zeros((1, 2, 3), dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError, match="uint8"):
-        rot_warp_crop(frames.float(), fi, mats, (4, 4))
-    with pytest.raises(ValueError, match="uint8"):
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="uint8 or float32"):
+        rot_warp_crop(frames.double(), fi, mats, (4, 4))
+    with pytest.raises(ValueError, match="uint8 or float32"):
         rot_warp_crop(frames.permute(0, 2, 1, 3), fi, mats, (4, 4))
     with pytest.raises(ValueError, match="int64"):
         rot_warp_crop(frames, fi.int(), mats, (4, 4))
+    with pytest.raises(ValueError, match="bfloat16"):
+        rot_warp_crop(frames, fi, mats, (4, 4), dtype=torch.float16)
+    assert rot_warp_crop.launches == 0
+
+
+def scoring_like_mats(n, W, H, oh, ow):
+    """rot=0 dst->src affines of person boxes scaled up and down, every
+    third one flipped, some past a frame edge, one wholly outside."""
+    s = RNG.uniform(0.3, 2.5, n)
+    cx = RNG.uniform(-0.2 * W, 1.2 * W, n)
+    cy = RNG.uniform(-0.2 * H, 1.2 * H, n)
+    mats = np.zeros((n, 2, 3), np.float32)
+    mats[:, 0, 0] = s
+    mats[:, 1, 1] = s
+    mats[:, 0, 2] = cx - s * ow / 2
+    mats[:, 1, 2] = cy - s * oh / 2
+    mats[::3, 0, 0] *= -1
+    mats[::3, 0, 2] = cx[::3] + s[::3] * ow / 2
+    mats[1] = [[1, 0, -10 * W], [0, 1, 3 * H]]
+    return mats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("out", [(64, 192), (37, 190), (5, 7)])
+def test_rot_warp_kernel_dtypes_and_ragged_widths(cuda, src, out):
+    """Every instance: uint8 or float32 frames to f32 or bf16 crops, at
+    widths 192, 190 and 7 (the span of one warp ends mid-row, and the
+    output's end mid-span), rotated and flipped crops and rot=0 ones, one
+    wholly outside the frame.  f32 within 1e-3/255 of the plain version
+    (the same operations, rounded alike: in practice equal); bf16 equal
+    bit for bit to the plain version's f32 crop rounded to bf16."""
+    H, W = 45, 71
+    frames = RNG.uniform(0, 255, (3, H, W, 3))
+    frames = torch.tensor(frames.round() if src == torch.uint8 else frames,
+                          dtype=src, device=cuda)
+    mats = np.concatenate([planted_crop_mats(W, H),
+                           scoring_like_mats(10, W, H, *out)])
+    mats = torch.from_numpy(mats).to(cuda)
+    fi = torch.tensor(RNG.integers(0, 3, len(mats)), dtype=torch.int64,
+                      device=cuda)
+    ref = rot_warp_crop_reference(frames, fi, mats, out)
+    reset_launch_counts()
+    got = rot_warp_crop(frames, fi, mats, out)
+    got_bf16 = rot_warp_crop(frames, fi, mats, out, dtype=torch.bfloat16)
+    assert rot_warp_crop.launches == 2
+    assert got.dtype == torch.float32 and got_bf16.dtype == torch.bfloat16
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 / 255)
+    assert torch.equal(got_bf16, rot_warp_crop_reference(
+        frames, fi, mats, out, dtype=torch.bfloat16))
+    mean = torch.as_tensor(RGB_MEAN, device=cuda)
+    for i in (2, 8):                                     # wholly outside
+        assert torch.equal(got[i], (-mean).expand_as(got[i]))
+
+
+@pytest.mark.cuda
+def test_rot_warp_kernel_takes_more_than_65535_samples(cuda):
+    """70,000 crops of 2x3 pixels: past the simple form's grid.y limit,
+    with the output's end mid-span."""
+    frames = torch.from_numpy(RNG.integers(0, 256, (5, 9, 11, 3),
+                                           dtype=np.uint8)).to(cuda)
+    n = 70000
+    mats = np.zeros((n, 2, 3), np.float32)
+    mats[:, 0, 0] = mats[:, 1, 1] = RNG.uniform(0.5, 2.0, n)
+    mats[:, 0, 2] = RNG.uniform(-3, 10, n)
+    mats[:, 1, 2] = RNG.uniform(-3, 8, n)
+    mats = torch.from_numpy(mats).to(cuda)
+    fi = torch.tensor(RNG.integers(0, 5, n), dtype=torch.int64, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = rot_warp_crop(frames, fi, mats, (2, 3), dtype=dtype)
+        ref = rot_warp_crop_reference(frames, fi, mats, (2, 3), dtype=dtype)
+        assert got.shape == (n, 2, 3, 3)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=1e-3 / 255)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 17, 64, 48), (9, 5, 47, 63),
+                                   (8, 19, 13, 9), (6, 3, 3, 3)])
+def test_postprocess_kernel_at_scoring_and_ragged_shapes(cuda, shape):
+    """The scoring pass's (512, 17, 64, 48), maps of 47x63 and 13x9 (whose
+    16-byte loads start off a map's first float) and the smallest maps,
+    with planted ties,
+    all-negative samples and border peaks: coords and maxvals bit-exact,
+    gc within rtol 1e-5 (the same sums in another order)."""
+    N, K, H, W = shape
+    if H >= 10 and W >= 8:
+        hms = planted_heatmaps(N, K, H, W)
+    else:      # noise, an all-negative sample, ties, an all-zero sample
+        hms = RNG.normal(0.1, 0.4, shape).astype(np.float32)
+        hms[1] = -np.abs(hms[1]) - 1e-3
+        hms[2] = np.round(hms[2] * 2) / 2
+        hms[3] = 0.0
+    hms = torch.from_numpy(hms).to(cuda)
+    reset_launch_counts()
+    coords, maxvals, gc = fused_postprocess(hms)
+    assert fused_postprocess.launches == 1
+    r_coords, r_maxvals, r_gc = postprocess_reference(hms)
+    assert torch.equal(coords, r_coords) and torch.equal(maxvals, r_maxvals)
+    torch.testing.assert_close(gc, r_gc, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", [torch.uint8, torch.float32])
+def test_rot_warp_kernel_on_frames_that_start_off_alignment(cuda, src):
+    """Frames that begin 1 element into their allocation (a contiguous
+    view), with taps on the first and the last pixels of the buffer: the
+    kernel's 8-byte tap loads and the loads it masks stay readable and the
+    crops equal the plain version's (f32 within 1e-3/255, bf16 bit for
+    bit)."""
+    F, H, W = 2, 9, 13
+    flat = RNG.uniform(0, 255, F * H * W * 3 + 1)
+    flat = torch.tensor(flat.round() if src == torch.uint8 else flat,
+                        dtype=src, device=cuda)
+    frames = flat[1:].view(F, H, W, 3)
+    mats = np.concatenate([planted_crop_mats(W, H), np.asarray(
+        [[[1, 0, -0.5], [0, 1, -0.5]],                  # the first pixel
+         [[1, 0, W - 2.5], [0, 1, H - 2.5]]],            # the last pixel
+        np.float32)])
+    mats = torch.from_numpy(mats).to(cuda)
+    fi = torch.tensor(RNG.integers(0, F, len(mats)), dtype=torch.int64,
+                      device=cuda)
+    fi[-2], fi[-1] = 0, F - 1
+    for dtype in (torch.float32, torch.bfloat16):
+        got = rot_warp_crop(frames, fi, mats, (5, 7), dtype=dtype)
+        ref = rot_warp_crop_reference(frames, fi, mats, (5, 7), dtype=dtype)
+        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                   atol=1e-3 / 255)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 48), (16, 12)])
+def test_postprocess_kernel_on_maps_that_start_off_alignment(cuda, hw):
+    """Maps whose width is a multiple of 4 but whose rows start off a
+    16-byte boundary (a contiguous view 1 float into its allocation): the
+    kernel walks them by single columns; coords and maxvals bit-exact, gc
+    within rtol 1e-5."""
+    hms = planted_heatmaps(8, 5, *hw)
+    flat = torch.zeros(hms.size + 1, dtype=torch.float32, device=cuda)
+    flat[1:] = torch.from_numpy(hms.ravel()).to(cuda)
+    maps = flat[1:].view(hms.shape)
+    coords, maxvals, gc = fused_postprocess(maps)
+    r_coords, r_maxvals, r_gc = postprocess_reference(maps)
+    assert torch.equal(coords, r_coords) and torch.equal(maxvals, r_maxvals)
+    torch.testing.assert_close(gc, r_gc, rtol=1e-5, atol=0)

@@ -20,6 +20,7 @@ from vatl4pose_tpu_torch.kernels import (fold_bn, fused_bottleneck_chain,
                                          reset_launch_counts)
 from vatl4pose_tpu_torch.kernels.fused_bottleneck import \
     bottleneck_chain_reference
+from vatl4pose_tpu_torch.ops import localpeak_mean
 
 torch.set_num_threads(1)
 RNG = np.random.default_rng(4117)
@@ -175,25 +176,103 @@ class TestPostprocess:
         assert (c[6, :, 0] == 0).all() and (c[6, :, 1] == 0).all()
 
     def test_glue_matches_plain_on_packed_rows(self):
-        """The host glue applied to what the kernel emits (argmax, max,
-        clamped neighbours) reproduces the plain version."""
-        from vatl4pose_tpu_torch.kernels.postprocess import _glue
+        """The decode the CUDA kernel's epilogue applies to a map's argmax,
+        max and clamped neighbours (coords zeroed where max <= 0, the
+        strict window test on the rounded coords, the ±0.25 sign shift),
+        written out here per joint, reproduces the plain version."""
         hms = torch.from_numpy(planted_heatmaps())
         N, K, H, W = hms.shape
         flat = hms.reshape(N, K, -1)
         maxv = flat.amax(-1)
         idx = torch.where(flat == maxv[..., None], torch.arange(H * W),
                           H * W).amin(-1)
-        px, py = idx % W, idx // W
-        pxc, pyc = px.clamp(1, W - 2), py.clamp(1, H - 2)
-
-        def at(yy, xx):
-            return torch.gather(flat, -1, (yy * W + xx)[..., None])[..., 0]
-
-        joint = torch.stack([px.float(), py.float(), maxv,
-                             at(pyc, pxc - 1), at(pyc, pxc + 1),
-                             at(pyc - 1, pxc), at(pyc + 1, pxc)], dim=1)
-        coords, maxvals = _glue(joint, W, H)
         r_coords, r_maxvals, _ = postprocess_reference(hms)
-        torch.testing.assert_close(coords, r_coords, rtol=0, atol=0)
-        torch.testing.assert_close(maxvals, r_maxvals, rtol=0, atol=0)
+        torch.testing.assert_close(maxv, r_maxvals, rtol=0, atol=0)
+        for n in range(N):
+            for k in range(K):
+                i = int(idx[n, k])
+                py, px = divmod(i, W)
+                pxc, pyc = min(max(px, 1), W - 2), min(max(py, 1), H - 2)
+                m = hms[n, k]
+                pos = bool(maxv[n, k] > 0)
+                mx, my = (float(px), float(py)) if pos else (0.0, 0.0)
+                ok = 1 < round(mx) < W - 1 and 1 < round(my) < H - 1
+                sx = np.sign(float(m[pyc, pxc + 1] - m[pyc, pxc - 1]))
+                sy = np.sign(float(m[pyc + 1, pxc] - m[pyc - 1, pxc]))
+                want = [mx + 0.25 * sx, my + 0.25 * sy] if ok else [mx, my]
+                assert r_coords[n, k].tolist() == want, (n, k)
+
+    @pytest.mark.parametrize("shape", [(8, 5, 16, 12), (8, 3, 13, 9),
+                                       (8, 6, 11, 10), (8, 4, 10, 8)])
+    def test_plain_matches_pallas_at_ragged_maps(self, shape):
+        """Maps whose width is no multiple of 4 (the kernel's 16-byte loads
+        start off a map's first float), with the planted ties, all-negative
+        sample and border peaks: the plain version, which the wrapper
+        takes on the CPU, against the Pallas kernel in interpret mode and
+        the JAX ops."""
+        hms = planted_heatmaps(*shape)
+        coords, maxvals, gc = fused_postprocess(torch.from_numpy(hms))
+        p_coords, p_maxvals, p_gc = pallas_postprocess(jnp.asarray(hms),
+                                                       interpret=True)
+        r_coords, r_maxvals = jops.get_max_pred(jnp.asarray(hms))
+        r_coords = jops.subpixel_refine(jnp.asarray(hms), r_coords)
+        r_gc = jops.localpeak_mean(jnp.asarray(hms))
+        for ref_c, ref_m, ref_g in ((p_coords, p_maxvals, p_gc),
+                                    (r_coords, r_maxvals, r_gc)):
+            np.testing.assert_array_equal(coords.numpy(), np.asarray(ref_c))
+            np.testing.assert_array_equal(maxvals.numpy(), np.asarray(ref_m))
+            np.testing.assert_allclose(gc.numpy(), np.asarray(ref_g),
+                                       rtol=1e-6)
+
+    @pytest.mark.parametrize("hw", [(16, 12), (64, 48), (47, 63), (5, 3),
+                                    (3, 3), (13, 9), (9, 8)])
+    def test_kernel_band_walk_counts_the_plain_peaks(self, hw):
+        """The CUDA kernel's 3x3 peak test, mirrored step for step in
+        Python: the host's choice of bands for units of 4 columns (rows
+        16-byte aligned, W a multiple of 4) and of 1 column, then each
+        lane's walk down its band and unit with the 3-wide row maxima
+        above, at and below (constant-0 border), visits every pixel once
+        and keeps the same peaks as localpeak_mean."""
+        H, W = hw
+        hms = RNG.normal(0.1, 0.4, (3, 2, H, W)).astype(np.float32)
+        hms[1] = -np.abs(hms[1]) - 1e-3
+        hms[2, 0] = np.round(hms[2, 0] * 2) / 2
+
+        def pick_bands(units):                 # the host's band choice
+            best = None
+            for r in range(1, min(16, H) + 1):
+                cost = -(-units * r // 32) * (-(-H // r) + 2)
+                if best is None or cost < best[0]:
+                    best = (cost, r)
+            return best[1]
+
+        def row_max3(m, y, x):
+            return max(m[y, x - 1] if x > 0 else 0.0, m[y, x],
+                       m[y, x + 1] if x < W - 1 else 0.0)
+
+        for width in (4, 1) if W % 4 == 0 else (1,):
+            units = W // width
+            bands = pick_bands(units)
+            band_rows = -(-H // bands)
+            for n in range(hms.shape[0]):
+                s, c = 0.0, 0
+                for m in hms[n]:
+                    thresh = np.float32(m.max() * np.float32(0.5))
+                    visits = np.zeros((H, W), int)
+                    for u in range(bands * units):
+                        band, unit = divmod(u, units)
+                        y0 = band * band_rows
+                        for y in range(y0, min(H, y0 + band_rows)):
+                            for x in range(width * unit, width * unit + width):
+                                visits[y, x] += 1
+                                mf = max(
+                                    row_max3(m, y - 1, x) if y > 0 else 0.0,
+                                    row_max3(m, y, x),
+                                    row_max3(m, y + 1, x) if y + 1 < H
+                                    else 0.0)
+                                if m[y, x] == mf and m[y, x] >= thresh:
+                                    s += float(m[y, x])
+                                    c += 1
+                    assert (visits == 1).all(), (width, n)
+                want = localpeak_mean(torch.from_numpy(hms[n])).item()
+                assert np.isclose(s / max(c, 1), want, rtol=1e-6, atol=0)

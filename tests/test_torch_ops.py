@@ -73,6 +73,33 @@ def test_crop_batch(monkeypatch, chunked):
     np.testing.assert_allclose(gotn.numpy(), np.asarray(refn), atol=1e-3 / 255)
 
 
+@pytest.mark.parametrize("src", [np.uint8, np.float32])
+def test_crop_batch_through_the_crop_kernel_matches_jax(src):
+    """The scoring crop, now the crop kernel's plain (gather) form with
+    rot=0 matrices, against the JAX package's separable crop_batch in f32,
+    from uint8 or float32 frames, on boxes past every frame edge and one
+    wholly outside: the two forms differ by f32 rounding only, max |err|
+    <= 1e-3/255 on the normalized crops; bf16 crops are the f32 crops
+    rounded once."""
+    frames = RNG.integers(0, 256, (3, 90, 120, 3)).astype(src)
+    bb = np.concatenate([boxes(6, 120, 90), np.array(
+        [[-30, 10, 25, 70], [90, -25, 150, 40], [40, 60, 80, 130],
+         [-80, -60, -20, -5]], np.float32)])
+    fidx = RNG.integers(0, 3, len(bb))
+    ref, ref_bc = jops.crop_batch(jnp.asarray(frames, jnp.float32), fidx, bb,
+                                  (64, 48))
+    got, bc = tops.crop_batch(t(frames), fidx, t(bb), (64, 48))
+    assert got.dtype == torch.float32 and got.shape == (10, 64, 48, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-3 / 255)
+    np.testing.assert_allclose(bc.numpy(), np.asarray(ref_bc), rtol=1e-6)
+    mean = torch.from_numpy(tops.RGB_MEAN)
+    assert torch.equal(got[9], (-mean).expand_as(got[9]))   # wholly outside
+    got16, _ = tops.crop_batch(t(frames), fidx, t(bb), (64, 48),
+                               dtype=torch.bfloat16)
+    assert torch.equal(got16, got.to(torch.bfloat16))
+
+
 def planted_heatmaps(n=6, k=5, h=16, w=12):
     """Noise plus the cases the decode must get right: an all-negative
     map, a tied maximum, a maximum on the border, a quantized map full of

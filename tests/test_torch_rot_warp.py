@@ -139,3 +139,40 @@ def test_wrapper_raises_on_other_devices(noise_frames):
         rot_warp_crop(torch.empty((3, 120, 160, 3), dtype=torch.uint8,
                                   device="meta"),
                       torch.from_numpy(fi), torch.from_numpy(mats), OUT)
+
+
+def test_bf16_reference_is_the_f32_crop_rounded_once(noise_frames):
+    """The plain version in bf16, which the kernel's bf16 instances match
+    bit for bit on the card, is its f32 crop rounded once; the wrapper on
+    the CPU returns it."""
+    mats, fi = train_cases(noise_frames.shape[2])
+    args = (torch.from_numpy(noise_frames), torch.from_numpy(fi),
+            torch.from_numpy(mats), OUT)
+    f32 = rot_warp_crop_reference(*args)
+    bf16 = rot_warp_crop_reference(*args, dtype=torch.bfloat16)
+    assert bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, f32.to(torch.bfloat16))
+    assert torch.equal(rot_warp_crop(*args, dtype=torch.bfloat16), bf16)
+
+
+@pytest.mark.parametrize("values", ["integers", "fractions"])
+def test_plain_warp_of_float_frames_matches_jax_gather(noise_frames, values):
+    """float32 frames (the scoring engine's "uint8 or float" contract),
+    holding the uint8 frames' values or fractional ones, against the JAX
+    gather: max |err| <= 1e-3 on [0, 255]; with integer values the plain
+    version equals its result from the uint8 frames."""
+    mats, fi = train_cases(noise_frames.shape[2])
+    frames = noise_frames.astype(np.float32)
+    if values == "fractions":
+        frames += RNG.uniform(0, 1, frames.shape).astype(np.float32)
+    args = (torch.from_numpy(fi), torch.from_numpy(mats), OUT)
+    got = warp_affine_bilinear_batch(torch.from_numpy(frames), *args)
+    ref = np.asarray(jax.vmap(functools.partial(jax_warp, out_size=OUT))(
+        jnp.asarray(frames)[fi], jnp.asarray(mats)))
+    assert np.abs(got.numpy() - ref).max() <= 1e-3
+    crops = rot_warp_crop(torch.from_numpy(frames), *args)
+    np.testing.assert_allclose(crops.numpy(), ref / 255.0 - JAX_RGB_MEAN,
+                               rtol=0, atol=1e-3 / 255)
+    if values == "integers":
+        assert torch.equal(crops, rot_warp_crop(
+            torch.from_numpy(noise_frames), *args))

@@ -94,6 +94,8 @@ class ScoringEngine:
         or float in [0, 255].  Returns device tensors (N, K, h, w),
         (N, E), (N, 4)."""
         frames = torch.as_tensor(frames, device=self.device)
+        if frames.is_floating_point():       # the crop kernel reads f32
+            frames = frames.to(torch.float32)
         frame_idx = np.asarray(frame_idx)
         bboxes = np.asarray(bboxes, np.float32)
         model = self._serving_model()

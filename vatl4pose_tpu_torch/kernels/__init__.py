@@ -5,7 +5,7 @@ PyTorch versions.  Each wrapper counts its kernel launches in its
 from .fused_bottleneck import (bottleneck_chain_reference, fold_bn,
                                fused_bottleneck_chain)
 from .postprocess import fused_postprocess, postprocess_reference
-from .rot_warp import rot_warp_copy, rot_warp_crop, rot_warp_crop_reference
+from .rot_warp import rot_warp_crop, rot_warp_crop_reference
 
 KERNELS = (fused_bottleneck_chain, fused_postprocess, rot_warp_crop)
 

@@ -39,8 +39,9 @@ SIGNATURES = {
         "heatmap_postprocess_f32": [_P] * 4 + [_I] * 4 + [_P],
     },
     "rot_warp": {
-        "rot_warp_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
-        "rot_warp_copy_f32": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_P],
+        f"{variant}_{src}_{out}": [_P] * 4 + [_I] * 6 + [_F] * 4 + [_P]
+        for variant in ("rot_warp", "rot_warp_copy")
+        for src in ("u8", "f32") for out in ("f32", "bf16")
     },
 }
 

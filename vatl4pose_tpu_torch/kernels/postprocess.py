@@ -1,13 +1,14 @@
 """Heatmap post-process (counterpart of vatl4pose_tpu/kernels/
 pallas_postprocess.py): the wrapper of the CUDA kernel csrc/
-postprocess.cu, its plain PyTorch version and the host glue.
+postprocess.cu and its plain PyTorch version.
 
 One read of the (N, K, H, W) f32 heatmaps gives per joint the argmax
-(row-major, first max wins), the max value and the 4 neighbours at the
-clamped peak, and per sample the mean of the kept 3x3 local peaks.  The
-glue turns these into refined heatmap coords exactly as
-`get_max_pred` + `subpixel_refine` do: coords zeroed where maxval <= 0
-before the strict 1 < p < size-1 window test on rounded coords.
+(row-major, first max wins) and the max value, decoded into refined
+heatmap coords exactly as `get_max_pred` + `subpixel_refine` do (coords
+zeroed where maxval <= 0 before the strict 1 < p < size-1 window test on
+rounded coords, then the ±0.25 shift toward the larger neighbour), and
+per sample the mean of the kept 3x3 local peaks.  The kernel writes these
+final outputs itself.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; any other device raises.
@@ -23,9 +24,9 @@ from . import _build
 
 __all__ = ["fused_postprocess", "postprocess_reference"]
 
-# one map in dynamic shared memory, under the 48 KB a block gets without
-# opting in, less room for the kernel's static reduction buffers
-_MAX_MAP_BYTES = 47 * 1024
+# one map and the K per-map partials in the dynamic shared memory of one
+# block (the 227 KB an H100 block can opt in to)
+_MAX_SMEM_BYTES = 232448
 
 
 def postprocess_reference(hms):
@@ -33,18 +34,6 @@ def postprocess_reference(hms):
     maxvals (N, K), gc (N,))."""
     coords, maxvals = get_max_pred(hms)
     return subpixel_refine(hms, coords), maxvals, localpeak_mean(hms)
-
-
-def _glue(joint, W, H):
-    px, py, maxvals, left, right, up, down = joint.unbind(1)
-    coords = torch.stack([px, py], dim=-1)
-    masked = coords * (maxvals > 0)[..., None].to(coords.dtype)
-    pxi = torch.round(masked[..., 0]).to(torch.int32)
-    pyi = torch.round(masked[..., 1]).to(torch.int32)
-    ok = (pxi > 1) & (pxi < W - 1) & (pyi > 1) & (pyi < H - 1)
-    shift = torch.stack([torch.sign(right - left), torch.sign(down - up)],
-                        dim=-1) * 0.25
-    return masked + shift * ok[..., None].to(coords.dtype), maxvals
 
 
 def fused_postprocess(hms):
@@ -59,20 +48,23 @@ def fused_postprocess(hms):
         raise ValueError("hms must be a contiguous (N, K, H, W) float32 "
                          "tensor")
     N, K, H, W = hms.shape
-    if H < 3 or W < 3 or H * W * 4 > _MAX_MAP_BYTES:
-        raise ValueError(f"map size {H}x{W} outside the kernel's range")
+    # the kernel's buffer per map: H*W floats and 4 of slack, 16-aligned
+    smem = (2 * K + 3) // 4 * 16 + (H * W + 7) // 4 * 16
+    if H < 3 or W < 3 or smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"{K} maps of {H}x{W} outside the kernel's range")
     lib = _build.load("postprocess")
-    joint = torch.empty((N, 7, K), dtype=torch.float32, device=hms.device)
-    part = torch.empty((N * K, 2), dtype=torch.float32, device=hms.device)
-    gc = torch.empty((N,), dtype=torch.float32, device=hms.device)
+    # one allocation for the three outputs
+    out = torch.empty(N * K * 3 + N, dtype=torch.float32, device=hms.device)
+    coords = out[:N * K * 2].view(N, K, 2)
+    maxvals = out[N * K * 2:N * K * 3].view(N, K)
+    gc = out[N * K * 3:]
     with torch.cuda.device(hms.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.heatmap_postprocess_f32(hms.data_ptr(), joint.data_ptr(),
-                                          part.data_ptr(), gc.data_ptr(),
+        err = lib.heatmap_postprocess_f32(hms.data_ptr(), coords.data_ptr(),
+                                          maxvals.data_ptr(), gc.data_ptr(),
                                           N, K, H, W, stream)
     _build.check(err, "fused_postprocess")
     fused_postprocess.launches += 1
-    coords, maxvals = _glue(joint, W, H)
     return coords, maxvals, gc
 
 

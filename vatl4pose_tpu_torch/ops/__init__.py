@@ -9,5 +9,5 @@ from .hybrid import ANGLE_TRIANGLES_17, compute_hybrid
 from .oks import COCO_SIGMAS, COCO_VARS, JRDB_SIGMAS, JRDB_VARS, compute_oks
 from .peaks import localpeak_mean, max_filter2d
 from .temporal import temporal_neighbor_weights, thc_scores
-from .warp import (RGB_MEAN, crop_batch, warp_affine_bilinear,
+from .warp import (RGB_MEAN, crop_batch, crop_geometry, warp_affine_bilinear,
                    warp_affine_bilinear_batch, warp_axis_aligned_batch)

@@ -9,11 +9,13 @@ coefficient quantization).  It is the plain version of the training crop
 kernel (kernels/rot_warp.py), and every operation of it is one tensor op
 rounded on its own, so the kernel can repeat its arithmetic bit for bit.
 
-Every scoring crop is axis-aligned (rot=0), so the scoring warp with a
-constant-0 border is separable: out[n] = Wy[n] @ frames[fi[n]] @ Wx[n]^T
-with hat-kernel (tent) weight rows, two batched matrix products.
-Out-of-range source coordinates get all-zero weight rows, which is
-BORDER_CONSTANT 0 exactly.
+`crop_batch` is the scoring crop: rot=0 matrices from the person boxes,
+normalized through the crop kernel (kernels/rot_warp.py), which on the
+CPU is this gather form.  The JAX package computes the same axis-aligned
+warp as two batched matrix products (separable hat-kernel weights, the
+TPU's MXU being fast and its gathers slow); the two agree up to f32
+rounding.  `warp_axis_aligned_batch` keeps that separable form, the JAX
+function's counterpart, for unnormalized crops.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from .affine import box_to_center_scale, center_scale_to_box, get_affine_transform
 
 __all__ = ["warp_affine_bilinear", "warp_affine_bilinear_batch",
-           "warp_axis_aligned_batch", "crop_batch", "RGB_MEAN"]
+           "warp_axis_aligned_batch", "crop_geometry", "crop_batch",
+           "RGB_MEAN"]
 
 # peak-memory cap for the (chunk, H, W, C) gathered-frames buffer: large
 # source frames are warped in sub-chunks under it
@@ -121,30 +124,41 @@ def warp_axis_aligned_batch(frames, frame_idx, inv_mats, out_size,
     return out
 
 
-def crop_batch(frames, frame_idx, bboxes_xyxy, input_size, aspect_ratio=None,
-               normalize: bool = True, dtype=torch.float32):
-    """Normalized person crops for a batch of boxes.
-
-    frames: (F, H, W, 3) in [0, 255] (uint8 or float, RGB); frame_idx:
-    (N,); bboxes_xyxy: (N, 4) raw person boxes; input_size: (inp_h, inp_w).
-    Returns (crops (N, inp_h, inp_w, 3) NHWC in `dtype`, bbox_crop (N, 4)
-    xyxy f32 — the aspect-corrected 1.25-padded crop box).
-    """
+def crop_geometry(bboxes_xyxy, input_size, aspect_ratio=None, device=None):
+    """The scoring crops' rot=0 geometry for a batch of raw person boxes
+    (N, 4) xyxy: (inv_mats (N, 2, 3) dst->src float32, bbox_crop (N, 4)
+    xyxy float32, the aspect-corrected 1.25-padded crop box)."""
     inp_h, inp_w = int(input_size[0]), int(input_size[1])
     if aspect_ratio is None:
         aspect_ratio = float(inp_w) / float(inp_h)
-    dev = frames.device
-    bb = torch.as_tensor(bboxes_xyxy, dtype=torch.float32, device=dev)
+    bb = torch.as_tensor(bboxes_xyxy, dtype=torch.float32, device=device)
     center, scale = box_to_center_scale(
         bb[:, 0], bb[:, 1], bb[:, 2] - bb[:, 0], bb[:, 3] - bb[:, 1],
         aspect_ratio)
     inv_mats = get_affine_transform(center, scale, 0.0, (inp_w, inp_h),
                                     inv=True)
-    bbox_crop = center_scale_to_box(center, scale)
+    return inv_mats.contiguous(), center_scale_to_box(center, scale)
+
+
+def crop_batch(frames, frame_idx, bboxes_xyxy, input_size, aspect_ratio=None,
+               normalize: bool = True, dtype=torch.float32):
+    """Normalized person crops for a batch of boxes.
+
+    frames: (F, H, W, 3) in [0, 255] (uint8 or float32, RGB); frame_idx:
+    (N,); bboxes_xyxy: (N, 4) raw person boxes; input_size: (inp_h, inp_w).
+    Returns (crops (N, inp_h, inp_w, 3) NHWC in `dtype`, bbox_crop (N, 4)
+    xyxy f32 — the aspect-corrected 1.25-padded crop box).  Normalized
+    crops come from the crop kernel (computed in f32, rounded once to
+    `dtype`); normalize=False returns the separable warp in `dtype`.
+    """
+    from ..kernels.rot_warp import rot_warp_crop   # it imports this module
+    out_size = (int(input_size[0]), int(input_size[1]))
+    dev = frames.device
+    inv_mats, bbox_crop = crop_geometry(bboxes_xyxy, out_size, aspect_ratio,
+                                        dev)
     fi = torch.as_tensor(np.asarray(frame_idx), dtype=torch.long, device=dev)
-    crops = warp_axis_aligned_batch(frames, fi, inv_mats, (inp_h, inp_w),
-                                    dtype=dtype)
     if normalize:
-        mean = torch.as_tensor(RGB_MEAN, device=dev).to(dtype)
-        crops = crops / 255.0 - mean
-    return crops, bbox_crop
+        return rot_warp_crop(frames, fi, inv_mats, out_size,
+                             dtype=dtype), bbox_crop
+    return warp_axis_aligned_batch(frames, fi, inv_mats, out_size,
+                                   dtype=dtype), bbox_crop
