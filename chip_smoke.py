@@ -35,8 +35,22 @@ Phases, each of which fails the run on error, each with its wall time:
      fine-tune (AETrainer) and an f32 rescoring pass on the new weights;
      then one train step from the same weights on the card and on the CPU
      (f32, and f64 as the exact step), compared;
-  5. a `{"kernels": [...]}` line, then the last line
-     `{"ok": true, "device": {...}}`.
+  5. AL loop: the port's CLI loop (run_active_learning's set_dir,
+     prepare_synthetic, do_al and save_result) on the DUW strategy
+     (THC+WPU, Influence, Coreset, continual, seedfix, f32) over the
+     phase-3 video, from phase 3's seeded weights written as a .pth and a
+     seeded AE .pth, on configs/posetrack21/al_simple_posetrack.yaml
+     transcribed with one cut (RETRAIN.ALPHA 250 -> 4): 9 rounds and the
+     final evaluation.  Checked: result.json's fields, percentages rising
+     to 100, every sample queried once, a cycle_times.jsonl line a cycle,
+     the launch counters (reset before the loop) at K1 4x, K2 1x and K3 1x
+     a scoring pass and K3 once an optimizer step; then the retrained
+     model through K1, K1's plain version, the unfused cuDNN graph and an
+     f64 CPU forward (fold_check), and round 0's coreset in f32 on the
+     card against f64 on the host; each round's wall and phase split
+     printed;
+  6. a `{"kernels": [...]}` line (launches by main path), then the last
+     line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -77,6 +91,43 @@ AUG = dict(scale_factor=0.3, rot_factor=40.0, flip=False,
            num_joints_half_body=8, prob_half_body=-1.0)
 AE_LR, AE_EPOCHS = 8e-5, 20
 RETRAIN_EPOCHS = 3
+# configs/posetrack21/al_simple_posetrack.yaml as the AL loop reads it,
+# transcribed (this script may run where PyYAML is missing), with one cut:
+# RETRAIN.ALPHA 250 -> AL_ALPHA, so a continual round retrains at most
+# AL_ALPHA epochs instead of about 250
+AL_ALPHA = 4
+AL_CFG = {
+    "DATASET": {
+        "TRAIN": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
+                  "ANN": "",
+                  "AUG": {"FLIP": False, "ROT_FACTOR": 40,
+                          "SCALE_FACTOR": 0.3, "NUM_JOINTS_HALF_BODY": 8,
+                          "PROB_HALF_BODY": -1}},
+        "EVAL": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
+                 "ANN": ""}},
+    "DATA_PRESET": {"TYPE": "simple", "SIGMA": 2, "NUM_JOINTS": 17,
+                    "IMAGE_SIZE": [256, 192], "HEATMAP_SIZE": [64, 48]},
+    "MODEL": {"TYPE": "SimplePose", "PRETRAINED": "", "TRY_LOAD": "",
+              "NUM_DECONV_FILTERS": [256, 256, 256], "NUM_LAYERS": 50},
+    "LOSS": {"TYPE": "MSELoss"},
+    "AE": {"Z_DIM": 4, "PRETRAINED_ROOT": "", "EPOCH": 20, "LR": 0.00008},
+    "AUXNET": {"PRETRAINED_ROOT": "", "EPOCH": 20, "LR": 0.00008},
+    "RETRAIN": {"BATCH_SIZE": 120, "BASE": 25, "OPTIMIZER": "AdamW",
+                "LR": 0.00025, "ALPHA": AL_ALPHA, "WEIGHT_DECAY": 0.7,
+                "LR_GAMMA": 0.99},
+    "VAL": {"FINISH_ACC": 1, "BATCH_SIZE": 1080, "W_UNC": 0.01,
+            "UNC_LAMBDA": 0.01,
+            "QUERY_RATIO": [0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.6, 0.8, 1.0],
+            "VIS": True},
+}
+# the fields of run_active_learning.save_result
+RESULT_FIELDS = {
+    "config_file", "video_id", "strategy", "model", "percentages",
+    "performances", "performances_ann", "query_list", "uncertaity",
+    "influence", "combine_weight", "mean_uncertaity", "spearmanr",
+    "corrcoef", "true_labeled", "true_unlabeled", "false_labeled",
+    "false_unlabeled", "actual_finish", "finished_minerror",
+    "finished_oursc", "ospa", "ospa_ann", "moks_queried"}
 
 
 def log(*a):
@@ -982,6 +1033,270 @@ def phase_retrain(video, model, ae, hm_before, seed):
     return rate
 
 
+class CallLog:
+    """Counts the calls of the AL loop's entry points (a scoring pass, an
+    optimizer step) and keeps round 0's coreset arguments and the scoring
+    engine, by wrapping the functions for the duration of the loop."""
+
+    def __init__(self):
+        self.score_calls = self.train_steps = 0
+        self.coreset_args = None
+        self.engine = None
+        self._undo = []
+
+    def wrap(self, owner, name, before):
+        orig = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            before(*a, **kw)
+            return orig(*a, **kw)
+        setattr(owner, name, wrapper)
+        self._undo.append((owner, name, orig))
+
+    def __enter__(self):
+        from vatl4pose_tpu_torch.al import active_learning, scoring
+        from vatl4pose_tpu_torch.train import retrain
+
+        def on_score(engine, *a, **kw):
+            self.score_calls += 1
+            self.engine = engine
+
+        def on_step(*a, **kw):
+            self.train_steps += 1
+
+        def on_coreset(*a, **kw):
+            if self.coreset_args is None:
+                self.coreset_args = copy.deepcopy((a, kw))
+        self.wrap(scoring.ScoringEngine, "score", on_score)
+        self.wrap(retrain.Retrainer, "train_step", on_step)
+        self.wrap(active_learning, "coreset_selection", on_coreset)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+
+
+def coreset_gaps(args, kw, picks, ref):
+    """Where the f32 greedy's picks differ from the f64 one's: the f64
+    score gap between the two picks at that step, relative to the step's
+    top score, with the f64 greedy's state replayed up to it.  The f32
+    resolution is 2^-23 (1.2e-7) of a score."""
+    import numpy as np
+    from vatl4pose_tpu_torch.al.selection import euclidean_distances
+    emb, unc, labeled, _, lam, moks = args
+    enc = np.asarray(emb, np.float64)
+    unc = np.asarray(unc, np.float64).copy()
+    md = euclidean_distances(enc, enc[labeled]).min(axis=1) if labeled \
+        else None
+    gaps = []
+    for a, b in zip(picks, ref):
+        if md is None:
+            sc = unc
+        elif kw["mode"] == "dynamic":
+            sc = (1.0 - moks) * md + lam * moks * unc
+        else:
+            sc = md + lam * unc if kw["mode"] == "fixed" else md
+        if a != b:
+            gaps.append((a, b, abs(sc[b] - sc[a]) / abs(sc).max()))
+        d = euclidean_distances(enc, enc[[b]])[:, 0]
+        md = d if md is None else np.minimum(md, d)
+        unc[b] = 0.0
+    return gaps
+
+
+def fold_check(model, video, n=16):
+    """The retrained model on the first n samples' scoring crops, in eval
+    mode, four ways: through K1; through K1's plain version (the same
+    folded operands, f32 products on cuDNN); through the unfused cuDNN
+    graph in f32; and, as the exact forward, through the unfused graph in
+    f64 on the CPU.  Two bars, each of which a stale fold or a stale copy
+    of the weights misses by orders of magnitude (retraining moves the
+    heatmaps by O(1)):
+      - the fold: K1's plain version against the unfused graph at the
+        backbone's output (the chain's output) within K1's f32 bar of
+        phase 2, 1e-4 of the max;
+      - K1: its heatmaps against the unfused graph's within phase 3's f32
+        bar, 1e-3 of the max.  K1's f32 products are 3xTF32, about 8x
+        f32's rounding each, and on retrained weights its outputs sit
+        further from the f64 forward than cuDNN's f32 ones do: these
+        distances are printed and returned beside the bars."""
+    import torch
+    import vatl4pose_tpu_torch.models.resnet as resnet_mod
+    from vatl4pose_tpu_torch.kernels import bottleneck_chain_reference
+    from vatl4pose_tpu_torch.ops import crop_batch
+    d = video.data
+    crops = crop_batch(video.frames_dev, d.frame_idx[:n], d.bboxes[:n],
+                       INPUT_SIZE)[0].permute(0, 3, 1, 2)
+    exact = copy.deepcopy(model).double().cpu().eval()
+    kernel = resnet_mod.fused_bottleneck_chain
+    was_training = model.training
+    model.eval()
+    out = {}
+    try:
+        with torch.no_grad():
+            for key, m, x in (("K1", model, crops),
+                              ("K1 plain", model, crops),
+                              ("unfused", model, crops),
+                              ("f64", exact, crops.double().cpu())):
+                m.preact.fused_eval = key.startswith("K1")
+                resnet_mod.fused_bottleneck_chain = \
+                    bottleneck_chain_reference if key == "K1 plain" \
+                    else kernel
+                feat = m.preact(x)
+                out[key] = {"backbone": feat.double().cpu(),
+                            "heatmaps": m.final_layer(
+                                m.deconv_layers(feat)).double().cpu()}
+    finally:
+        resnet_mod.fused_bottleneck_chain = kernel
+        model.preact.fused_eval = True
+        model.train(was_training)
+
+    def rel(a, b, what):
+        a, b = out[a][what], out[b][what]
+        return ((a - b).abs().max() / b.abs().max()).item()
+    res = {"fold": rel("K1 plain", "unfused", "backbone"),
+           "k1": rel("K1", "unfused", "heatmaps")}
+    res["ok"] = res["fold"] <= 1e-4 and res["k1"] <= 1e-3
+    for what in ("backbone", "heatmaps"):
+        res[f"{what}_vs_f64"] = {k: rel(k, "f64", what)
+                                 for k in ("K1", "K1 plain", "unfused")}
+        log(f"AL loop: retrained weights ({n} samples), {what} max|err| / "
+            f"max against the f64 forward: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in res[f"{what}_vs_f64"].items()))
+    log(f"AL loop: the fold (K1's plain version vs unfused, backbone) "
+        f"{res['fold']:.3e} (bar 1e-4); K1 vs unfused, heatmaps "
+        f"{res['k1']:.3e} (bar 1e-3): {'ok' if res['ok'] else 'FAILED'}")
+    return res
+
+
+def phase_al_loop(video, card, seed):
+    """The port's AL loop through its CLI's functions (set_dir,
+    prepare_synthetic, do_al, save_result): the DUW strategy (THC+WPU,
+    Influence, Coreset, continual, seedfix, f32) on AL_CFG over phase 3's
+    synthetic video, from phase 3's seeded weights written as a .pth and a
+    seeded AE as Hybrid/WholeBodyAE_zdim4.pth.  The counters are reset
+    before do_al and read after it.  Then the retrained model scores once
+    more through K1 and through the unfused cuDNN graph, and round 0's
+    coreset runs again on the card in f32 and on the host in f64."""
+    import os
+    import torch
+    from vatl4pose_tpu_torch.al.selection import coreset_selection
+    from vatl4pose_tpu_torch.cli import run_active_learning as cli
+    from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    n = len(video.data)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        model, ae = make_models(seed)
+        cfg = Cfg(copy.deepcopy(AL_CFG))
+        cfg.MODEL.PRETRAINED = os.path.join(tmp, "simplepose_r50.pth")
+        torch.save(model.state_dict(), cfg.MODEL.PRETRAINED)
+        cfg.AE.PRETRAINED_ROOT = os.path.join(tmp, "ae")
+        os.makedirs(os.path.join(tmp, "ae", "Hybrid"))
+        torch.save(ae.state_dict(), os.path.join(
+            tmp, "ae", "Hybrid", "WholeBodyAE_zdim4.pth"))
+        del model, ae
+        opt = cli.parse_args([
+            "--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
+            "--video_id", "000001", "--uncertainty", "THC+WPU",
+            "--representativeness", "Influence", "--filter", "Coreset",
+            "--continual", "--seedfix", "--synthetic", "--memo",
+            "chip_smoke", "--synth_seed", str(seed),
+            "--synth_frames", str(VIDEO["num_frames"]),
+            "--synth_persons", str(VIDEO["num_persons"]),
+            "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])])
+        os.chdir(tmp)                      # set_dir writes under ./exp
+        try:
+            opt = cli.setup_opt(opt)
+            opt = cli.set_dir(cfg, opt)
+            cfg = cli.prepare_synthetic(cfg, opt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CallLog() as calls:
+                reset_launch_counts()
+                result = cli.do_al(cfg, opt)
+                torch.cuda.synchronize()
+                counts = {k.__name__: k.launches for k in KERNELS}
+            loop_s = time.perf_counter() - t0
+            rj = json.load(open(cli.save_result(cfg, opt, result)))
+            cycles = [json.loads(line) for line in
+                      open(os.path.join(opt.work_dir, "cycle_times.jsonl"))]
+        finally:
+            os.chdir(cwd)
+            shutil.rmtree(cfg.DATASET.EVAL.ROOT, ignore_errors=True)
+
+    # the round table: a scoring cycle and its retrain cycle per round
+    by_round = {}
+    for c in cycles:
+        r = by_round.setdefault(c["round"], {"total_s": 0.0})
+        r["total_s"] += c["total_s"]
+        r.update(c["phases"])
+    for r, ph in sorted(by_round.items()):
+        log(f"AL round {r}: wall {ph['total_s']:.3f} s = " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ph.items() if k != "total_s"))
+    phase_sums = {k: sum(ph.get(k, 0.0) for ph in by_round.values())
+                  for k in ("score", "map_ospa", "select", "retrain")}
+    log(f"AL loop: {len(by_round)} cycles in {loop_s:.2f} s "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in phase_sums.items())}); "
+        f"{calls.score_calls} scoring passes, {calls.train_steps} optimizer "
+        f"steps; launches {counts}; {card}")
+
+    failed = []
+    if set(rj) != RESULT_FIELDS:
+        failed.append(f"result.json fields {sorted(set(rj) ^ RESULT_FIELDS)}")
+    pct = rj["percentages"]
+    if not (pct[-1] == 100.0 and all(a < b for a, b in zip(pct, pct[1:]))):
+        failed.append(f"percentages {pct}")
+    queried = sorted(q for qs in rj["query_list"].values() for q in qs)
+    if queried != list(range(n)):
+        failed.append(f"{len(queried)} queries, {len(set(queried))} distinct "
+                      f"of {n} samples")
+    rounds = len(AL_CFG["VAL"]["QUERY_RATIO"])
+    phases = [set(c["phases"]) for c in cycles]
+    if len(cycles) != 2 * rounds + 1 or any(
+            p not in ({"score", "map_ospa", "select"}, {"retrain"})
+            for p in phases) or phases.count({"retrain"}) != rounds:
+        failed.append(f"cycle_times.jsonl: {len(cycles)} lines, {phases}")
+    passes, steps = calls.score_calls, calls.train_steps
+    want = {"fused_bottleneck_chain": 4 * passes, "fused_postprocess": passes,
+            "rot_warp_crop": passes + steps}
+    if passes != rounds + 1 or steps == 0 or counts != want:
+        failed.append(f"launches {counts}, want {want} for {passes} passes "
+                      f"and {steps} steps")
+
+    fold = fold_check(calls.engine.model, video)
+    if not fold["ok"]:
+        failed.append(f"fused vs unfused {fold}")
+
+    # round 0's coreset: the f32 greedy on the card, the f64 one on the host
+    (a, kw) = calls.coreset_args
+    kw = dict(kw, rng=None)
+    t0 = time.perf_counter()
+    p32 = coreset_selection(*a, **dict(kw, precision="f32"))
+    t32 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p64 = coreset_selection(*a, **dict(kw, precision="f64"))
+    t64 = time.perf_counter() - t0
+    gaps = [] if p32 == p64 else coreset_gaps(a, kw, p32, p64)
+    log(f"AL loop: round-0 coreset, {len(p32)} picks of {len(a[0])} "
+        f"({kw['mode']}): f32 on the card {t32 * 1e3:.1f} ms, f64 on the "
+        f"host {t64 * 1e3:.1f} ms; same order {p32 == p64}, same set "
+        f"{set(p32) == set(p64)}; differing picks (f32, f64, gap/max) "
+        f"{gaps}")
+    # after the first differing pick the two greedy states differ, so
+    # only that pick's gap tells a near tie from a fault
+    if set(p32) != set(p64) and not gaps[0][2] < 1e-6:
+        failed.append(f"coreset f32 vs f64 {gaps}")
+    if failed:
+        raise AssertionError("AL loop: " + "; ".join(failed))
+    return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
+            "launches": counts, "phase_s": phase_sums,
+            "rounds": {str(r): ph for r, ph in sorted(by_round.items())},
+            "fold_check": fold, "coreset_same_order": p32 == p64}
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -1041,24 +1356,40 @@ def main():
     phase("phase 4: training path")
     train = phase_retrain(video, model, ae, hm_f32, seed)
     phase_step_check(video, seed)
-    phase("phase 5: result")
+    del model, ae, hm_f32
+    torch.cuda.empty_cache()
+    phase("phase 5: AL loop")
+    al = phase_al_loop(video, card, seed)
+    phase("phase 6: result")
 
+    # launches by main path: the scoring passes (phase 3), the retrain
+    # (phase 4) and the AL loop (phase 5, f32), each counted from 0
+    al_n = al["launches"]
+    k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
+                           "al_loop": al_n["fused_bottleneck_chain"]},
+                   "bf16": {"scoring_bf16":
+                            counts["bf16"]["fused_bottleneck_chain"]}}
     kernels = []
     for mode in ("f32", "bf16"):
         kernels.append({
             "name": f"fused_bottleneck_chain_{mode}", "route": "cuda",
             "source": "vatl4pose_tpu_torch/csrc/fused_bottleneck.cu",
             "replaces": "vatl4pose_tpu/kernels/fused_bottleneck.py:111",
-            "launches": counts[mode]["fused_bottleneck_chain"],
+            "launches": sum(k1_launches[mode].values()),
+            "launches_by_path": k1_launches[mode],
             "max_abs_err": k1[mode]["max_abs_err"], "ms": k1[mode]["ms"],
             "plain_ms": k1[mode]["plain_ms"],
             "bound_ms": k1[mode]["bound_ms"],
             "bound_by": k1[mode]["bound_by"], "library_ms": None})
+    k2_launches = {"scoring_f32": counts["f32"]["fused_postprocess"],
+                   "scoring_bf16": counts["bf16"]["fused_postprocess"],
+                   "al_loop": al_n["fused_postprocess"]}
     kernels.append({
         "name": "heatmap_postprocess_f32", "route": "cuda",
         "source": "vatl4pose_tpu_torch/csrc/postprocess.cu",
         "replaces": "vatl4pose_tpu/kernels/pallas_postprocess.py:129",
-        "launches": sum(c["fused_postprocess"] for c in counts.values()),
+        "launches": sum(k2_launches.values()),
+        "launches_by_path": k2_launches,
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None})
@@ -1068,7 +1399,8 @@ def main():
     # the instance launches at most: the retrain batch for u8_f32, the
     # scoring chunk for u8_bf16
     k3_launches = {"u8_f32": {"retrain": train["k3_launches"],
-                              "scoring_f32": counts["f32"]["rot_warp_crop"]},
+                              "scoring_f32": counts["f32"]["rot_warp_crop"],
+                              "al_loop": al_n["rot_warp_crop"]},
                    "u8_bf16": {"scoring_bf16":
                                counts["bf16"]["rot_warp_crop"]}}
     for inst, shape in (("u8_f32", "retrain_f32"),
@@ -1084,6 +1416,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
+                    "al_loop": al,
                     "k1_unfused_floor_ms": {m: k1[m]["floor_ms"] for m in k1},
                     "k1_cudnn_chain_ms": {m: k1[m]["cudnn_ms"] for m in k1},
                     "k2_wrapper_ms": k2["wrapper_ms"], "k3": k3,

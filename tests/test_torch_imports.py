@@ -1,0 +1,56 @@
+"""Every module of vatl4pose_tpu_torch imports without JAX, Flax, the JAX
+package, sklearn, PyYAML, matplotlib or cv2: the machine with the card has
+none of them."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+REFUSED = ("jax", "jaxlib", "flax", "vatl4pose_tpu", "sklearn", "yaml",
+           "matplotlib", "cv2")
+
+_SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+REFUSED = %r
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+
+for name in list(sys.modules):
+    if name.split(".")[0] in REFUSED:
+        del sys.modules[name]
+sys.meta_path.insert(0, Refuse())
+import vatl4pose_tpu_torch
+names = ["vatl4pose_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(vatl4pose_tpu_torch.__path__,
+                                          "vatl4pose_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_refused_packages():
+    out = subprocess.run([sys.executable, "-c", _SCRIPT % (REFUSED,)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    # the package, its subpackages and every module in them
+    assert int(out.stdout.split()[-1]) >= 40
+
+
+def test_refusing_finder_refuses():
+    """The guard itself works: importing a refused package fails."""
+    script = _SCRIPT % (REFUSED,) + "\nimport yaml\n"
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "refused import of yaml" in out.stderr

@@ -41,10 +41,12 @@ def _redraw(path, leaf, rng):
 
 
 def random_flax_variables(module, x, rng):
-    """Flax init, every leaf redrawn with numpy from `rng`; numpy tree."""
-    variables = module.init(jax.random.PRNGKey(0), x)
+    """The Flax init's tree, every leaf drawn with numpy from `rng`; numpy
+    tree.  Only the leaves' shapes are needed, so the init is only traced
+    (eval_shape), never run."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), x)
     return jax.tree_util.tree_map_with_path(
-        lambda p, a: _redraw(p, a, rng), jax.tree.map(np.asarray, variables))
+        lambda p, a: _redraw(p, a, rng), shapes)
 
 
 def port_simplepose(variables, fused_eval):

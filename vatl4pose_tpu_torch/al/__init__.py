@@ -1,3 +1,4 @@
-"""Active-learning engine (the scoring pass so far)."""
+"""Active-learning engine: scoring, selection and the AL loop."""
 
+from .active_learning import ActiveLearning
 from .scoring import ScoringConfig, ScoringEngine

@@ -1,0 +1,290 @@
+"""Main VATL entry point of the port (counterpart of
+vatl4pose_tpu/cli/run_active_learning.py; scripts/Run_active_learning.py).
+
+    python -m vatl4pose_tpu_torch.cli.run_active_learning \\
+        --cfg configs/posetrack21/al_simple_posetrack.yaml --video_id 000342 \\
+        --uncertainty THC+WPU --representativeness Influence \\
+        --filter Coreset --continual --seedfix
+
+The same flag surface as the JAX package's CLI, plus --device (default
+CUDA; `--device cpu` runs the kernels' plain versions on the CPU).  The
+strategy name, work-dir layout, do_al loop and the 20-field result.json
+follow Run_active_learning.py:123-244; a comma-separated --video_id runs
+the videos one after another in one process.  --synthetic generates a
+video instead of reading PoseTrack21/JRDB from disk.  Not ported yet, and
+so refused: --optimize (ROADMAP A11), --speedup (A10), --data_parallel
+(A14), --vis/--vis_thc/--vis_wpu (A13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from datetime import datetime
+
+import numpy as np
+
+__all__ = ["parse_args", "setup_opt", "set_dir", "prepare_synthetic",
+           "prepare_dataset_paths", "do_al", "save_result", "main"]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Active Learning Script (H100)")
+    p.add_argument("--cfg", type=str, default="configs/al_simple.yaml")
+    p.add_argument("--uncertainty", type=str, default="None")
+    p.add_argument("--representativeness", type=str, default="None")
+    p.add_argument("--filter", type=str, default="None")
+    p.add_argument("--video_id", type=str, required=True,
+                   help="video id, or comma-separated list run one after "
+                        "another in one process")
+    p.add_argument("--wunc", type=float, default=0.01)
+    p.add_argument("--retrain_thresh", type=float, default=1)
+    p.add_argument("--verbose", action="store_true",
+                   help="dataset smoke info + a torch.profiler trace of the "
+                        "first AL cycle under work_dir/trace (the "
+                        "reference's opt.profile analog, "
+                        "Run_active_learning.py:100-103)")
+    p.add_argument("--speedup", action="store_true",
+                   help="bf16 serving and retraining: not ported yet "
+                        "(ROADMAP A10)")
+    p.add_argument("--seedfix", action="store_true")
+    p.add_argument("--vis", action="store_true")
+    p.add_argument("--memo", type=str, default="test")
+    p.add_argument("--from_scratch", action="store_true")
+    p.add_argument("--onebyone", action="store_true")
+    p.add_argument("--stopping", action="store_true",
+                   help="stop once 'our SC' fires (parsed but never "
+                        "consumed in the reference, Run_active_learning.py:75)")
+    p.add_argument("--continual", action="store_true")
+    p.add_argument("--optimize", action="store_true",
+                   help="the UNC_LAMBDA search: not ported yet (ROADMAP A11)")
+    p.add_argument("--search", choices=["tpe", "grid"], default="tpe")
+    p.add_argument("--n_trials", type=int, default=30)
+    p.add_argument("--PCIT", action="store_true")
+    p.add_argument("--fixed_lambda", action="store_true")
+    p.add_argument("--THCvsWPU", choices=["const", "increase", "decrease"],
+                   default="const")
+    p.add_argument("--vis_thc", action="store_true")
+    p.add_argument("--vis_wpu", action="store_true")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate a synthetic video instead of reading "
+                        "PoseTrack21/JRDB from disk")
+    p.add_argument("--synth_frames", type=int, default=8)
+    p.add_argument("--synth_persons", type=int, default=3)
+    p.add_argument("--synth_seed", type=int, default=None,
+                   help="seed for the generated video (defaults to the run "
+                        "seed)")
+    p.add_argument("--synth_shift", type=float, nargs=4, default=None,
+                   metavar=("CH", "SIGMA", "AMP", "BG"),
+                   help="appearance shift (channel_shift, blob_sigma, "
+                        "blob_amp, bg_level) for the generated video")
+    p.add_argument("--synth_size", type=int, nargs=2, default=[320, 240],
+                   metavar=("W", "H"))
+    p.add_argument("--data_parallel", action="store_true",
+                   help="data parallel over several cards: not ported yet "
+                        "(ROADMAP A14)")
+    p.add_argument("--checkpoint_state", action="store_true",
+                   help="checkpoint the AL state every round "
+                        "(work_dir/al_state.pkl)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="resume a half-done run from its al_state.pkl")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; CUDA when not given")
+    return p.parse_args(argv)
+
+
+def setup_opt(opt):
+    """The run seed, and parity mode: f32 everywhere, no TF32."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    opt.seed = None
+    if opt.seedfix:
+        opt.seed = 166
+        np.random.seed(166)
+    return opt
+
+
+def set_dir(cfg, opt):
+    """Strategy-name composition + work dir (Run_active_learning.py:123-163)."""
+    if opt.uncertainty == "None" and opt.representativeness == "None":
+        if opt.filter == "None":
+            raise ValueError(
+                "Uncertainty, representativeness, and filter cannot be None "
+                "at the same time! \n --> Please specify one of them.")
+        opt.strategy = ""
+    elif opt.uncertainty == "None":
+        opt.strategy = opt.representativeness
+    elif opt.representativeness == "None":
+        opt.strategy = opt.uncertainty
+    else:
+        opt.strategy = opt.uncertainty + "+" + opt.representativeness
+    if opt.filter != "None":
+        opt.strategy = opt.strategy + "_" + opt.filter + "filter"
+    opt.get_prenext = "TPC" in opt.uncertainty or "THC" in opt.uncertainty
+
+    timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    sub = "optimize" if opt.optimize else opt.video_id
+    opt.work_dir = os.path.join(
+        "exp", f"AL_{opt.memo}", cfg.MODEL.TYPE, opt.strategy or "filteronly",
+        sub, timestamp)
+    os.makedirs(opt.work_dir, exist_ok=False)
+    return opt
+
+
+def prepare_synthetic(cfg, opt):
+    """A synthetic video in a fresh temporary directory, set as both
+    dataset splits."""
+    import tempfile
+    from ..data.synthetic import make_synthetic_video
+    root = tempfile.mkdtemp(prefix="vatl_synth_")
+    seed = opt.synth_seed if getattr(opt, "synth_seed", None) is not None \
+        else (opt.seed or 166)
+    extra = {}
+    if getattr(opt, "synth_shift", None):
+        ch, sig, amp, bg = opt.synth_shift
+        extra = dict(channel_shift=int(ch), blob_sigma=sig, blob_amp=amp,
+                     bg_level=bg)
+    if cfg.DATASET.EVAL.TYPE == "JRDB2022":
+        # JRDB composite ids use 3-digit track suffixes (jrdb2022.py)
+        extra["track_digits"] = 3
+    _, ann = make_synthetic_video(
+        root, video_id=opt.video_id, seed=seed,
+        num_frames=opt.synth_frames, num_persons=opt.synth_persons,
+        width=opt.synth_size[0], height=opt.synth_size[1], **extra)
+    for split in ("EVAL", "TRAIN"):
+        cfg.DATASET[split].ROOT = root
+        cfg.DATASET[split].ANN = ann
+        cfg.DATASET[split].IMG_PREFIX = ""
+    return cfg
+
+
+def prepare_dataset_paths(cfg, opt):
+    """Per-video annotation paths (ActiveLearning.py:68-95)."""
+    if getattr(opt, "synthetic", False):
+        return
+    ds = cfg.DATASET.EVAL.TYPE
+    vid = opt.video_id
+    if ds == "Posetrack21":
+        if opt.optimize:
+            img = f"images/train/{vid}_bonn_train/"
+            ann = f"activelearning/train_val/{vid}_bonn_train.json"
+        else:
+            img = f"images/val/{vid}_mpii_test/"
+            ann = f"activelearning/val/{vid}_mpii_test.json"
+    elif getattr(opt, "PCIT", False):
+        img = f"images/{vid}_PCIT_eval/"
+        ann = f"annotations/eval/{vid}.json"
+    elif ds == "JRDB2022":
+        split = "val" if opt.optimize else "test"
+        listfile = f"configs/jrdb-pose/jrdb_{split}.txt"
+        with open(listfile) as f:
+            scene = f.readlines()[int(vid)].strip()
+        img = f"images/image_stitched/{scene}/"
+        ann = f"activelearning/{split}/{vid}_jrdb-pose.json"
+    else:
+        raise ValueError(f"unknown dataset {ds}")
+    for split_key in ("EVAL", "TRAIN"):
+        cfg.DATASET[split_key].IMG_PREFIX = img
+        cfg.DATASET[split_key].ANN = ann
+
+
+def do_al(cfg, opt):
+    """One video's AL loop: eval_and_query then outcome, round after round,
+    until outcome returns the result."""
+    from ..al.active_learning import ActiveLearning
+    prepare_dataset_paths(cfg, opt)
+    al = ActiveLearning(cfg, opt)
+    if getattr(opt, "resume", None):
+        al.load_state(opt.resume)
+        print(f"resumed from {opt.resume} at round {al.round_cnt}")
+    t0 = time.time()
+    cycles = 0
+    while True:
+        tc = time.time()
+        if cycles == 0 and getattr(opt, "verbose", False):
+            # opt.profile analog (Run_active_learning.py:100-103): a trace
+            # of the first scoring and selection cycle
+            from ..utils.profiling import trace
+            with trace(os.path.join(opt.work_dir, "trace")):
+                al.eval_and_query()
+        else:
+            al.eval_and_query()
+        result = al.outcome()
+        cycles += 1
+        print(f"[cycle {cycles}] wall {time.time() - tc:.2f}s", flush=True)
+        if getattr(opt, "checkpoint_state", False) and result is None:
+            al.save_state()
+        if result is not None:
+            print(f"Active learning finished! total {time.time() - t0:.1f}s")
+            break
+    return result
+
+
+def save_result(cfg, opt, result):
+    """result.json with the reference's field set
+    (Run_active_learning.py:211-244)."""
+    rj = {
+        "config_file": opt.cfg,
+        "video_id": opt.video_id,
+        "strategy": opt.strategy,
+        "model": cfg.MODEL.TYPE,
+        "percentages": result[0],
+        "performances": result[1],
+        "performances_ann": result[2],
+        "query_list": result[3],
+        "uncertaity": result[4],
+        "influence": result[6],
+        "combine_weight": result[7],
+        "mean_uncertaity": result[5],
+        "spearmanr": result[8],
+        "corrcoef": result[9],
+        "true_labeled": result[10],
+        "true_unlabeled": result[11],
+        "false_labeled": result[12],
+        "false_unlabeled": result[13],
+        "actual_finish": result[14],
+        "finished_minerror": result[15],
+        "finished_oursc": result[16],
+        "ospa": result[17],
+        "ospa_ann": result[18],
+        "moks_queried": result[19],
+    }
+    path = os.path.join(opt.work_dir, "result.json")
+    with open(path, "w") as f:
+        json.dump(rj, f)
+    print(f"Result saved to: {path}!")
+    return path
+
+
+def main(argv=None):
+    from ..config import update_config
+    opt = parse_args(argv)
+    if opt.optimize:
+        raise NotImplementedError(
+            "--optimize (the UNC_LAMBDA search, optuna_lite) is not ported "
+            "yet (ROADMAP A11)")
+    opt = setup_opt(opt)
+    cfg = update_config(opt.cfg)
+    opt = set_dir(cfg, opt)
+    if opt.synthetic:
+        cfg = prepare_synthetic(cfg, opt)
+    if "," in opt.video_id:
+        videos = [v for v in opt.video_id.split(",") if v]
+        base_dir = opt.work_dir
+        for vid in videos:
+            opt.video_id = vid
+            opt.work_dir = os.path.join(base_dir, vid)
+            os.makedirs(opt.work_dir, exist_ok=True)
+            result = do_al(cfg, opt)
+            save_result(cfg, opt, result)
+        return
+    result = do_al(cfg, opt)
+    save_result(cfg, opt, result)
+
+
+if __name__ == "__main__":
+    main()

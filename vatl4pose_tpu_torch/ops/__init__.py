@@ -6,7 +6,8 @@ from .affine import (affine_transform_points, bbox_xyxy_to_xywh,
 from .heatmap import (crop_to_image, gaussian_target, get_max_pred,
                       heatmap_to_coord, subpixel_refine)
 from .hybrid import ANGLE_TRIANGLES_17, compute_hybrid
-from .oks import COCO_SIGMAS, COCO_VARS, JRDB_SIGMAS, JRDB_VARS, compute_oks
+from .oks import (COCO_SIGMAS, COCO_VARS, JRDB_SIGMAS, JRDB_VARS, compute_oks,
+                  oks_matrix)
 from .peaks import localpeak_mean, max_filter2d
 from .temporal import temporal_neighbor_weights, thc_scores
 from .warp import (RGB_MEAN, crop_batch, crop_geometry, warp_affine_bilinear,

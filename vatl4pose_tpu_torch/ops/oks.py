@@ -1,5 +1,6 @@
-"""Object Keypoint Similarity on tensors (counterpart of vatl4pose_tpu/
-ops/oks.py: `compute_oks` and the sigma constants)."""
+"""Object Keypoint Similarity (counterpart of vatl4pose_tpu/ops/oks.py):
+`compute_oks` on tensors, `oks_matrix` in numpy on the host for OSPA, and
+the sigma constants."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ JRDB_SIGMAS = np.array(
 JRDB_VARS = (JRDB_SIGMAS * 2) ** 2
 
 __all__ = ["COCO_SIGMAS", "COCO_VARS", "JRDB_SIGMAS", "JRDB_VARS",
-           "compute_oks"]
+           "compute_oks", "oks_matrix"]
 
 
 def compute_oks(pred_kpts, gt_kpts, bbox_xywh, variances=None):
@@ -61,3 +62,44 @@ def compute_oks(pred_kpts, gt_kpts, bbox_xywh, variances=None):
     oks_vis = num_vis / k1.clamp(min=1)
     oks_all = exp_e.mean(dim=-1)
     return torch.where(k1 > 0, oks_vis, oks_all)
+
+
+def oks_matrix(gt_kpts, gt_bbox_xywh, gt_area, pred_kpts, variances=None,
+               force_visible: bool = False):
+    """G x P OKS matrix in float64 numpy (pose_eval.py:177-221 /
+    pycocotools computeOks).
+
+    gt_kpts: (G, 3K); pred_kpts: (P, 3K); gt_bbox_xywh: (G, 4); gt_area:
+    (G,), the annotation 'area' where present (the reference falls back to
+    w*h).  force_visible mirrors get_per_kp_oks_matrix's vg=ones.
+    """
+    if variances is None:
+        variances = JRDB_VARS
+    var = np.asarray(variances, np.float64)
+    g = np.asarray(gt_kpts, np.float64)
+    d = np.asarray(pred_kpts, np.float64)
+    G, P = g.shape[0], d.shape[0]
+    xg, yg, vg = g[:, 0::3], g[:, 1::3], g[:, 2::3]
+    if force_visible:
+        vg = np.ones_like(vg)
+    xd, yd = d[:, 0::3], d[:, 1::3]
+    bb = np.asarray(gt_bbox_xywh, np.float64)
+    area = np.asarray(gt_area, np.float64)
+    out = np.zeros((G, P), np.float64)
+    for j in range(G):
+        k1 = np.count_nonzero(vg[j] > 0)
+        if k1 > 0:
+            dx = xd - xg[j]
+            dy = yd - yg[j]
+        else:
+            x0 = bb[j, 0] - bb[j, 2]
+            x1 = bb[j, 0] + bb[j, 2] * 2
+            y0 = bb[j, 1] - bb[j, 3]
+            y1 = bb[j, 1] + bb[j, 3] * 2
+            dx = np.maximum(0, x0 - xd) + np.maximum(0, xd - x1)
+            dy = np.maximum(0, y0 - yd) + np.maximum(0, yd - y1)
+        e = (dx ** 2 + dy ** 2) / var / (area[j] + np.spacing(1)) / 2
+        if k1 > 0:
+            e = e[:, vg[j] > 0]
+        out[j] = np.sum(np.exp(-e), axis=1) / e.shape[1]
+    return out

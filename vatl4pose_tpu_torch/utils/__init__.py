@@ -1,3 +1,4 @@
-"""Training metrics."""
+"""Training metrics and profiling."""
 
 from .metrics import acc_tensor, calc_accuracy
+from .profiling import CycleTimer, trace
