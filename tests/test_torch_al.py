@@ -216,14 +216,31 @@ def test_cli_main_synthetic_writes_result(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("speedup", "A10"), ("data_parallel", "A14"), ("vis", "A13"),
-    ("vis_thc", "A13"), ("vis_wpu", "A13"), ("K-Means", "A11"),
-    ("weighted", "A11")])
+    ("data_parallel", "A14"), ("vis", "A13"), ("vis_thc", "A13"),
+    ("vis_wpu", "A13"), ("K-Means", "A11"), ("weighted", "A11")])
 def test_unported_options_raise(setup, flag, item):
     tmp, cfg = setup
     kw = {"filter": flag} if flag in ("K-Means", "weighted") else {flag: True}
     with pytest.raises(NotImplementedError, match=item):
         ActiveLearning(Cfg(copy.deepcopy(cfg)), Opt(str(tmp / "x"), **kw))
+
+
+def test_speedup_loop_runs_to_the_end(setup):
+    """--speedup on the CPU: bf16 serving through the folded chain and the
+    bf16 retrainer, through the whole DUW loop; the served model's master
+    weights stay f32 between rounds, every sample is queried once, the
+    percentages rise to 100 and the scores are finite."""
+    tmp, cfg = setup
+    al = ActiveLearning(Cfg(copy.deepcopy(cfg)),
+                        Opt(str(tmp / "speedup"), speedup=True))
+    assert al.speedup and al.engine.cfg.bf16 and al.retrainer.bf16
+    got = run(al)
+    assert {p.dtype for p in al.model.parameters()} == {torch.float32}
+    assert sorted(q for qs in got[3].values() for q in qs) == list(range(10))
+    assert got[0] == [0.0, 20.0, 50.0, 100.0]
+    assert np.isfinite([r["AP"] for r in got[1]]).all()
+    assert all(np.isfinite(list(u.values())).all()
+               for u in got[4].values())
 
 
 def test_optimize_refused():
@@ -233,20 +250,26 @@ def test_optimize_refused():
 
 def test_weights_and_device_are_never_guessed(setup, monkeypatch):
     """A missing or empty MODEL.PRETRAINED or AE root raises (no random
-    fallback); frames over the budget raise (streaming, A10); no device
-    means CUDA."""
+    fallback); frames over the budget stay in host RAM (streaming), never
+    on the device; no device means CUDA."""
     tmp, base = setup
     cases = [(("MODEL", "PRETRAINED"), str(tmp / "none.pth"),
               FileNotFoundError),
              (("MODEL", "PRETRAINED"), "", ValueError),
              (("AE", "PRETRAINED_ROOT"), str(tmp / "none"),
-              FileNotFoundError),
-             (("VAL", "HBM_FRAME_BUDGET_GB"), 1e-6, NotImplementedError)]
+              FileNotFoundError)]
     for (sec, key), value, exc in cases:
         cfg = copy.deepcopy(base)
         cfg[sec][key] = value
         with pytest.raises(exc):
             ActiveLearning(Cfg(cfg), Opt(str(tmp / "y")))
+    cfg = copy.deepcopy(base)
+    cfg["VAL"]["HBM_FRAME_BUDGET_GB"] = 1e-6
+    al = ActiveLearning(Cfg(cfg), Opt(str(tmp / "y")))
+    assert al.streaming and al.frames_dev is None
+    assert al.frame_store.total_bytes > 1e-6 * 2 ** 30
+    assert not ActiveLearning(Cfg(copy.deepcopy(base)),
+                              Opt(str(tmp / "y2"))).streaming
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ActiveLearning(Cfg(copy.deepcopy(base)),

@@ -358,3 +358,144 @@ def test_postprocess_kernel_on_maps_that_start_off_alignment(cuda, hw):
     r_coords, r_maxvals, r_gc = postprocess_reference(maps)
     assert torch.equal(coords, r_coords) and torch.equal(maxvals, r_maxvals)
     torch.testing.assert_close(gc, r_gc, rtol=1e-5, atol=0)
+
+
+def _chain_f64(x, ws):
+    """The folded chain in float64 (F.conv2d on the card), NHWC."""
+    import torch.nn.functional as F
+    w1, s1, b1, w2, s2, b2, w3, s3, b3 = (w.double() for w in ws)
+    cur = x.double().permute(0, 3, 1, 2)
+    for i in range(w1.shape[0]):
+        h = torch.relu(F.conv2d(cur, w1[i].t()[:, :, None, None])
+                       * s1[i][:, None, None] + b1[i][:, None, None])
+        h = torch.relu(F.conv2d(h, w2[i].permute(3, 2, 0, 1), padding=1)
+                       * s2[i][:, None, None] + b2[i][:, None, None])
+        cur = torch.relu(F.conv2d(h, w3[i].t()[:, :, None, None])
+                         * s3[i][:, None, None] + b3[i][:, None, None] + cur)
+    return cur.permute(0, 2, 3, 1)
+
+
+def cancelling_chain_operands(device, rng):
+    """R50's last stage (N=4, 8x6, C=2048, P=512, nb=2: the 3x3 sums
+    K = 9 * 512 = 4608 products) on operands whose sums cancel as a
+    trained ResNet's do: positive activations of mean 1, weights of mean
+    0.02, so every running sum grows with K, and BN biases that subtract
+    each channel's mean pre-activation (from an f64 pass), so an output
+    is a few percent of its sum.  Returns (x, ws) in f32."""
+    import torch.nn.functional as F
+    N, H, W, C, P, nb = 4, 8, 6, 2048, 512, 2
+    x = torch.tensor(rng.uniform(0.5, 1.5, (N, H, W, C)), dtype=torch.float32,
+                     device=device)
+    ws = [0.02 + rng.normal(0, 0.02, (nb, C, P)), np.ones((nb, P)), None,
+          0.02 + rng.normal(0, 0.02, (nb, 3, 3, P, P)), np.ones((nb, P)),
+          None, 0.02 + rng.normal(0, 0.02, (nb, P, C)), np.full((nb, C), 0.2),
+          None]
+    ws = [None if w is None else torch.tensor(w, dtype=torch.float32,
+                                              device=device) for w in ws]
+    cur = x.double().permute(0, 3, 1, 2)
+    b1, b2, b3 = (torch.zeros((nb, n), dtype=torch.float64, device=device)
+                  for n in (P, P, C))
+    for i in range(nb):
+        h = F.conv2d(cur, ws[0][i].double().t()[:, :, None, None])
+        b1[i] = -h.mean(dim=(0, 2, 3))
+        h = torch.relu(h + b1[i][:, None, None])
+        h = F.conv2d(h, ws[3][i].double().permute(3, 2, 0, 1), padding=1)
+        b2[i] = -h.mean(dim=(0, 2, 3))
+        h = torch.relu(h + b2[i][:, None, None])
+        h = F.conv2d(h, ws[6][i].double().t()[:, :, None, None]) * 0.2
+        b3[i] = -h.mean(dim=(0, 2, 3))
+        cur = torch.relu(h + b3[i][:, None, None] + cur)
+    ws[2], ws[5], ws[8] = (b.float() for b in (b1, b2, b3))
+    return x, ws
+
+
+@pytest.mark.cuda
+def test_chain_kernel_f32_precision_on_cancelling_operands(cuda):
+    """K1's f32 path against the chain in f64 on cancelling_chain_operands.
+    3xTF32 summed into one accumulator over all of K lost the correction
+    terms' low bits to the tensor core's truncating adds (fault C1); K1's
+    max|err| / max from f64 must be at most twice that of cuDNN's f32
+    chain (K1's plain version, TF32 off)."""
+    x, ws = cancelling_chain_operands(cuda, RNG)
+    exact = _chain_f64(x, ws)
+    scale = exact.abs().max().item()
+    got = fused_bottleneck_chain(x, *ws)
+    plain = bottleneck_chain_reference(x, *ws)
+    e_k1 = (got.double() - exact).abs().max().item() / scale
+    e_plain = (plain.double() - exact).abs().max().item() / scale
+    print(f"max|err|/max from f64: K1 {e_k1:.3e}, cuDNN f32 {e_plain:.3e}")
+    assert e_k1 <= 2 * e_plain, (e_k1, e_plain)
+
+
+def he_scaled_(model, gen):
+    """Seeded He-scaled conv weights, small gains on each residual
+    branch's last BN and random BN statistics, so that a random R50's
+    activations stay O(1) through its 50 layers (with torch's default init
+    and eval-mode BN they fade, and every heatmap is a near tie).  In
+    place."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                fan_in = m.weight[0].numel()
+                if isinstance(m, torch.nn.ConvTranspose2d):
+                    fan_in = m.weight.shape[0] * 4
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / fan_in) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                lo, hi = (0.1, 0.3) if name.endswith(("bn3", "downsample.1")) \
+                    else (0.5, 1.0)
+                c = m.num_features
+                m.weight.copy_(torch.rand(c, generator=gen) * (hi - lo) + lo)
+                m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    return model
+
+
+@pytest.mark.cuda
+def test_streamed_scoring_matches_resident_on_card(cuda, tmp_path):
+    """ScoringEngine.score_streaming on the card (host-warp crops, K1 and
+    K2 a chunk, K3 never) against `score` with the frames on the card (K3's
+    crops), on a SimplePose-R50 at 64x48 with seeded He-scaled weights
+    (he_scaled_), random ones as in the JAX package's test: the streamed
+    path at chunk 3 and 10 equal within 1e-5 (the halo hides the chunk
+    edges).  Against the resident path (the host crop is the device crop
+    rounded to uint8), the JAX package's bounds (tests/test_stream.py):
+    OKS, THC, det_score and gc within rtol = atol = 2e-2, more than 99% of
+    kpts within (2e-2, 1.0)."""
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.data import build_dataset, make_synthetic_video
+    from vatl4pose_tpu_torch.models import SimplePose
+    root, ann = make_synthetic_video(str(tmp_path), num_frames=5,
+                                     num_persons=2, width=160, height=128)
+    ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root, "ANN": ann})
+    d = ds.data
+    args = (d.frame_idx, d.bboxes, d.gt_keypoints,
+            np.stack([d.bboxes[:, 0], d.bboxes[:, 1],
+                      d.bboxes[:, 2] - d.bboxes[:, 0],
+                      d.bboxes[:, 3] - d.bboxes[:, 1]], 1),
+            d.is_prev, d.is_next)
+    model = he_scaled_(SimplePose(
+        num_joints=17, num_layers=50, deconv_dim=(32, 32, 32),
+        fused_eval=True, device="cpu"), torch.Generator().manual_seed(5))
+    model = model.to(cuda)
+    cfg = ScoringConfig(uncertainty="THC_L1", input_size=(64, 48))
+    outs = []
+    for chunk in (3, 10):
+        reset_launch_counts()
+        outs.append(ScoringEngine(model, cfg, chunk=chunk).score_streaming(
+            ds.frame_store(), *args))
+        n_chunks = -(-len(d) // chunk)
+        assert fused_bottleneck_chain.launches == 4 * n_chunks
+        assert fused_postprocess.launches == n_chunks
+        assert rot_warp_crop.launches == 0
+    for k in ("oks", "unc", "det_score", "gc", "kpts", "embeddings"):
+        np.testing.assert_allclose(outs[0][k], outs[1][k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+    res = ScoringEngine(model, cfg, chunk=4).score(
+        torch.from_numpy(ds.load_frames()).to(cuda), *args)
+    for k in ("oks", "unc", "det_score", "gc"):
+        np.testing.assert_allclose(outs[0][k], res[k], rtol=2e-2, atol=2e-2,
+                                   err_msg=k)
+    close = np.isclose(outs[0]["kpts"], res["kpts"], rtol=2e-2, atol=1.0)
+    assert close.mean() > 0.99, close.mean()

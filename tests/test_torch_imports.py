@@ -54,3 +54,28 @@ def test_refusing_finder_refuses():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "refused import of yaml" in out.stderr
+
+
+def test_streaming_path_runs_without_refused_packages():
+    """The streaming modules are among those imported, and the host warp
+    and the frame store run behind the same finder: .npy frames, the port's
+    own build of native/warp, no cv2."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import os, tempfile
+import numpy as np
+assert {"vatl4pose_tpu_torch.data.stream",
+        "vatl4pose_tpu_torch.data.native_warp"} <= set(names)
+from vatl4pose_tpu_torch.data.stream import FrameStore, warp_crops_host
+tmp = tempfile.mkdtemp()
+frame = np.random.default_rng(0).integers(0, 256, (40, 50, 3), np.uint8)
+np.save(os.path.join(tmp, "f.npy"), frame)
+store = FrameStore([os.path.join(tmp, "f.npy")], [[50, 40]])
+mats = np.array([[[1.0, 0.0, -3.0], [0.0, 1.0, -2.0]]])
+crops = warp_crops_host(store, np.array([0]), mats, (8, 8))
+assert (crops[0] == frame[2:10, 3:11]).all()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

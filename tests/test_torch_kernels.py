@@ -276,3 +276,29 @@ class TestPostprocess:
                     assert (visits == 1).all(), (width, n)
                 want = localpeak_mean(torch.from_numpy(hms[n])).item()
                 assert np.isclose(s / max(c, 1), want, rtol=1e-6, atol=0)
+
+
+def test_k1_study_patch_rebuilds_the_measured_source():
+    """scripts/k1_f32_precision.py rebuilds the f32 summation schemes it
+    measured from the shipped chain kernel and scripts/k1_f32_schemes.patch.
+    The patch applies to csrc/fused_bottleneck.cu and gives the source the
+    study hashed; the shipped kernel has one scheme and no macro to pick
+    another; a kernel line the patch expects, changed, is refused."""
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "k1_f32_precision", root / "scripts" / "k1_f32_precision.py")
+    study = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(study)
+    text = study.study_source()
+    assert "#define K1_F32_SCHEME 6" in text
+    shipped = (root / "vatl4pose_tpu_torch" / "csrc" /
+               "fused_bottleneck.cu").read_text()
+    assert "K1_F32_SCHEME" not in shipped
+    patch = study.PATCH.read_text()
+    line = "        Mma<T, BN>::run(part, da, dbl);\n"
+    assert shipped.count(line) == 1
+    with pytest.raises(ValueError, match="does not apply"):
+        study.apply_patch(shipped.replace(line, line.replace("dbl", "db")),
+                          patch)

@@ -14,9 +14,15 @@ The port's own design:
     tails through the chain kernel K1, BN folded from the current weights
     on every forward).  The JAX package serves the unfused graph in parity
     mode and the fused one only under --speedup.
-  - The frames go to the device once and stay there across rounds; a
-    video whose frames exceed VAL.HBM_FRAME_BUDGET_GB raises (streaming is
-    ROADMAP A10).
+  - --speedup, as in the JAX package: bf16 serving (bf16 weights and
+    crops, the bottleneck tails through K1 in bf16) and bf16 retraining
+    (bf16 copies of the f32 master weights through the forward and
+    backward).  The AE and the host evaluation stay f32.
+  - The frames go to the device once and stay there across rounds, unless
+    they exceed VAL.HBM_FRAME_BUDGET_GB (default 4 GiB): then they stay
+    in host RAM (data/stream.FrameStore), and scoring and retraining take
+    the host warp's crops a chunk or a batch at a time
+    (ScoringEngine.score_streaming, Retrainer.retrain_streaming).
   - Pretrained weights: MODEL.PRETRAINED as a reference `.pth`
     (load_state_dict as it is) or a `.pkl` of numpy Flax variables
     (state_dict_from_flax); the AE likewise from
@@ -24,9 +30,9 @@ The port's own design:
     is given and missing raises.  --from_scratch (and an empty
     AE.PRETRAINED_ROOT) takes PyTorch's init under torch.manual_seed(seed),
     which is not Flax's init: such runs do not match the JAX package's.
-  - Not ported yet, and so refused: --speedup (bf16 retraining, A10),
-    --data_parallel (A14), --vis/--vis_thc/--vis_wpu (A13), the VL4Pose
-    and other A11 scorers, and the K-Means and weighted filters (A11).
+  - Not ported yet, and so refused: --data_parallel (A14),
+    --vis/--vis_thc/--vis_wpu (A13), the VL4Pose and other A11 scorers,
+    and the K-Means and weighted filters (A11).
 
 Device work per round: one chunked forward over the whole video and the
 stage-2 scoring (al/scoring.py), the cosine product and the f32 coreset
@@ -63,8 +69,8 @@ from .selection import (coreset_selection, diversity_filter, fuse_thc_wpu,
 __all__ = ["ActiveLearning"]
 
 # (option, ROADMAP item) pairs that the port refuses
-_UNPORTED_FLAGS = (("speedup", "A10"), ("data_parallel", "A14"),
-                   ("vis", "A13"), ("vis_thc", "A13"), ("vis_wpu", "A13"))
+_UNPORTED_FLAGS = (("data_parallel", "A14"), ("vis", "A13"),
+                   ("vis_thc", "A13"), ("vis_wpu", "A13"))
 
 
 def _load_weights(module, state_dict, what):
@@ -131,19 +137,23 @@ class ActiveLearning:
         self.timer = CycleTimer(opt.work_dir)
         self.rng = np.random.RandomState(self.seed)
 
-        # ---- data: the frames go to the device once ------------------------
+        # ---- data: the frames go to the device once, or stream ------------
         self.dataset = build_dataset(cfg.DATASET.EVAL)
         self.data = self.dataset.data
         self.eval_len = len(self.data)
         budget = float(cfg.VAL.get("HBM_FRAME_BUDGET_GB", 4.0)) * (1 << 30)
-        frame_bytes = int(np.prod(self.data.frame_sizes, axis=1).sum()) * 3
-        if frame_bytes > budget:
-            raise NotImplementedError(
-                f"the video's frames take {frame_bytes / 2**30:.2f} GiB, "
-                f"more than VAL.HBM_FRAME_BUDGET_GB; streaming them is not "
-                f"ported yet (ROADMAP A10)")
-        self.frames_dev = torch.from_numpy(
-            self.dataset.load_frames()).to(self.device)
+        store = self.dataset.frame_store()
+        self.streaming = store.total_bytes > budget
+        if self.streaming:
+            self.frame_store = store
+            self.frames_dev = None
+            self._log(f"[streaming] frames {store.total_bytes / 2**30:.2f} "
+                      f"GiB > VAL.HBM_FRAME_BUDGET_GB: host-RAM frame store "
+                      f"and chunked scoring")
+        else:
+            self.frame_store = None
+            self.frames_dev = torch.from_numpy(
+                self.dataset.load_frames()).to(self.device)
         self.img_wh = (self.data.width, self.data.height)
         self.eval_joints = tuple(self.dataset.EVAL_JOINTS)
 
@@ -164,6 +174,7 @@ class ActiveLearning:
         self.retrain_id = IndexCollection()
         self.moks_queried = 0.0
         self.continual = bool(getattr(opt, "continual", False))
+        self.speedup = bool(getattr(opt, "speedup", False))
 
         # result accumulators (result.json schema, Run_active_learning.py:211)
         self.percentage: List[float] = []
@@ -207,7 +218,7 @@ class ActiveLearning:
                 num_joints_half_body=aug_cfg.get("NUM_JOINTS_HALF_BODY", 8),
                 prob_half_body=aug_cfg.get("PROB_HALF_BODY", -1)),
             joint_pairs=self.dataset.joint_pairs,
-            seed=self.seed or 166, device=self.device)
+            seed=self.seed or 166, bf16=self.speedup, device=self.device)
         self.retrain_epoch = cfg.RETRAIN.BASE
 
         # ---- WPU autoencoder -------------------------------------------------
@@ -235,7 +246,7 @@ class ActiveLearning:
             ScoringConfig(uncertainty=self.uncertainty,
                           need_embedding=need_emb,
                           input_size=tuple(cfg.DATA_PRESET.IMAGE_SIZE),
-                          eval_joints=self.eval_joints),
+                          eval_joints=self.eval_joints, bf16=self.speedup),
             ae_model=self.ae, chunk=min(512, max(32, self.eval_len)),
             device=self.device)
         self._log(f"[[AL strategy: {self.strategy}]] video {self.video_id} "
@@ -290,10 +301,14 @@ class ActiveLearning:
             [d.bboxes[:, 0], d.bboxes[:, 1],
              d.bboxes[:, 2] - d.bboxes[:, 0],
              d.bboxes[:, 3] - d.bboxes[:, 1]], axis=1)
+        args = (d.frame_idx, d.bboxes, d.gt_keypoints, bbox_ann_xywh,
+                d.is_prev, d.is_next)
         with self.timer.phase("score"):
-            res = self.engine.score(
-                self.frames_dev, d.frame_idx, d.bboxes, d.gt_keypoints,
-                bbox_ann_xywh, d.is_prev, d.is_next, keep_heatmaps=False)
+            if self.streaming:
+                res = self.engine.score_streaming(self.frame_store, *args)
+            else:
+                res = self.engine.score(self.frames_dev, *args,
+                                        keep_heatmaps=False)
 
         kpts = res["kpts"].astype(np.float64)          # (N, 51)
         oks = res["oks"].astype(np.float64)
@@ -584,9 +599,19 @@ class ActiveLearning:
 
     def _retrain_model(self):
         if self.retrain_epoch > 0 and len(self.retrain_id.index) > 0:
-            self.retrainer.retrain(self.data, self.frames_dev,
-                                   self.retrain_id.index, self.retrain_epoch,
-                                   self.img_wh, log=self._log)
+            if self.streaming:
+                from ..data.stream import CropStreamer
+                tr = self.retrainer
+                streamer = CropStreamer(
+                    self.data, self.frame_store, tr.input_size, tr.aug,
+                    tr.joint_pairs, tr.batch_size, seed=self.seed or 166)
+                tr.retrain_streaming(streamer, self.retrain_id.index,
+                                     self.retrain_epoch, log=self._log)
+            else:
+                self.retrainer.retrain(self.data, self.frames_dev,
+                                       self.retrain_id.index,
+                                       self.retrain_epoch, self.img_wh,
+                                       log=self._log)
         if self.ae is not None:
             # pretrained weights again, then a fine-tune on the labeled
             # samples' GT features (ActiveLearning.py:681-685, 905-925)

@@ -7,6 +7,10 @@
           a shift along the track-sorted sample axis, WPU through the
           hybrid feature and the autoencoder, the local-peak weight `gc`.
 
+`score_streaming` is the path for frames that stay in host RAM: the
+crops come from the host warp chunk by chunk, and stage 2 runs a chunk at
+a time with a ±1-row halo, so the card holds O(chunk) of the video.
+
 Every sample's heatmap is computed once.  Eager PyTorch does not
 recompile per shape, so neither stage pads to a static size; the outputs
 for the real rows are the same.  Branches ported: THC_L1, THC_L2,
@@ -25,7 +29,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.postprocess import fused_postprocess
 from ..ops import (bbox_xyxy_to_xywh, compute_hybrid, compute_oks,
-                   crop_batch, crop_to_image, thc_scores)
+                   crop_batch, crop_to_image, normalize_crops, thc_scores)
 
 UNC_NONE = "None"
 _PORTED = ("THC_L1", "THC_L2", "THC+WPU", "WPU", "HP", UNC_NONE)
@@ -75,18 +79,26 @@ class ScoringEngine:
         # cast a copy per call, so weights updated by a retrain are seen
         return copy.deepcopy(self.model).to(torch.bfloat16)
 
+    def _dtype(self):
+        return torch.bfloat16 if self.cfg.bf16 else torch.float32
+
     def _forward_chunk(self, model, frames, frame_idx, bboxes):
-        dtype = torch.bfloat16 if self.cfg.bf16 else torch.float32
         crops, bbox_crop = crop_batch(frames, frame_idx, bboxes,
-                                      self.cfg.input_size, dtype=dtype)
+                                      self.cfg.input_size,
+                                      dtype=self._dtype())
+        return self._model_outputs(model, crops) + (bbox_crop,)
+
+    def _model_outputs(self, model, crops):
+        """(N, h, w, 3) normalized crops in the serving dtype →
+        heatmaps (in the model's dtype: stage 2 upcasts at entry) and f32
+        embeddings."""
         x = crops.permute(0, 3, 1, 2)
         if self.cfg.need_embedding:
             hm, emb = model(x, return_embedding=True)
         else:
             hm = model(x)
             emb = torch.zeros((x.shape[0], 1), device=x.device)
-        # heatmaps stay in the model's dtype: stage 2 upcasts at entry
-        return hm, emb.to(torch.float32), bbox_crop
+        return hm, emb.to(torch.float32)
 
     @torch.no_grad()
     def forward_video(self, frames, frame_idx, bboxes):
@@ -155,6 +167,86 @@ class ScoringEngine:
         return (recon - feat).square().mean(dim=-1)
 
     # ---- public API -------------------------------------------------------
+    @torch.no_grad()
+    def score_streaming(self, frame_store, frame_idx, bboxes, gt_kpts,
+                        bbox_ann_xywh, is_prev, is_next,
+                        keep_heatmaps: bool = False,
+                        warp_mode: int = 1) -> Dict[str, np.ndarray]:
+        """One scoring pass over a track-sorted video whose frames stay in
+        host RAM (data/stream.FrameStore).  Stage 1 takes the host warp's
+        uint8 crops a chunk at a time; stage 2 scores each chunk with one
+        halo row on each side (THC's neighbours are a shift along the
+        sample axis, so one row reproduces the whole-video result), one
+        chunk behind stage 1, so that at most two chunks of heatmaps are
+        on the card.  Returns what `score` returns; heatmaps, if kept, as
+        a CPU tensor."""
+        from ..data.pipeline import eval_sample_geometry
+        from ..data.stream import warp_crops_host
+
+        cfg = self.cfg
+        dev = self.device
+        bboxes = np.asarray(bboxes, np.float32)
+        n = bboxes.shape[0]
+        _, bbox_crop, fwd_mats = eval_sample_geometry(
+            bboxes, cfg.input_size, want_fwd=True)
+        frame_idx = np.asarray(frame_idx)
+        host = {"bbox_crop": (bbox_crop, torch.float32, 1.0),
+                "gt": (np.asarray(gt_kpts, np.float32), torch.float32, 0.0),
+                "bb_ann": (np.asarray(bbox_ann_xywh, np.float32),
+                           torch.float32, 1.0),
+                "is_prev": (np.asarray(is_prev, bool), torch.bool, False),
+                "is_next": (np.asarray(is_next, bool), torch.bool, False)}
+
+        def halo(key, s, e):
+            """Rows s..e-1 with one padding row on each side, on the
+            card: row j is sample s + j - 1."""
+            a, dtype, pad = host[key]
+            out = np.full((e - s + 2,) + a.shape[1:], pad, a.dtype)
+            out[1:-1] = a[s:e]
+            return torch.as_tensor(out, dtype=dtype, device=dev)
+
+        outs, embs, hms_kept = {}, [], []
+        prev_tail = None      # the previous chunk's last heatmap row
+
+        def stage2(s, e, hm, next_head):
+            nonlocal prev_tail
+            zero = torch.zeros_like(hm[:1])
+            rows = torch.cat([zero if prev_tail is None else prev_tail, hm,
+                              zero if next_head is None else next_head])
+            out = self._score_video(rows, *(halo(k, s, e) for k in host))
+            for k, v in out.items():
+                outs.setdefault(k, []).append(v[1:-1])
+            prev_tail = hm[-1:]
+
+        model = self._serving_model()
+        was_training = model.training
+        model.eval()
+        pending = None
+        try:
+            for s in range(0, n, self.chunk):
+                e = min(s + self.chunk, n)
+                crops = warp_crops_host(frame_store, frame_idx[s:e],
+                                        fwd_mats[s:e], cfg.input_size,
+                                        mode=warp_mode)
+                hm, emb = self._model_outputs(
+                    model, normalize_crops(crops, dev, self._dtype()))
+                embs.append(emb)
+                if keep_heatmaps:
+                    hms_kept.append(hm.cpu())
+                if pending is not None:
+                    stage2(*pending, next_head=hm[:1])
+                pending = (s, e, hm)
+            if pending is not None:
+                stage2(*pending, next_head=None)
+        finally:
+            model.train(was_training)
+        res = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+        res["embeddings"] = torch.cat(embs).cpu().numpy()
+        res["bbox_crop"] = bbox_crop
+        if keep_heatmaps:
+            res["heatmaps"] = torch.cat(hms_kept)
+        return res
+
     def score(self, frames, frame_idx, bboxes, gt_kpts, bbox_ann_xywh,
               is_prev, is_next,
               keep_heatmaps: bool = True) -> Dict[str, np.ndarray]:

@@ -11,9 +11,13 @@ CUDA; `--device cpu` runs the kernels' plain versions on the CPU).  The
 strategy name, work-dir layout, do_al loop and the 20-field result.json
 follow Run_active_learning.py:123-244; a comma-separated --video_id runs
 the videos one after another in one process.  --synthetic generates a
-video instead of reading PoseTrack21/JRDB from disk.  Not ported yet, and
-so refused: --optimize (ROADMAP A11), --speedup (A10), --data_parallel
-(A14), --vis/--vis_thc/--vis_wpu (A13).
+video instead of reading PoseTrack21/JRDB from disk.  --speedup serves
+and retrains in bf16 and lets f32 products use TF32, as the JAX package
+drops its 'highest' matmul precision; without it every f32 product is
+full f32 (parity mode).  A video whose frames exceed
+VAL.HBM_FRAME_BUDGET_GB streams from host RAM.  Not ported yet, and so
+refused: --optimize (ROADMAP A11), --data_parallel (A14),
+--vis/--vis_thc/--vis_wpu (A13).
 """
 
 from __future__ import annotations
@@ -47,8 +51,9 @@ def parse_args(argv=None):
                         "reference's opt.profile analog, "
                         "Run_active_learning.py:100-103)")
     p.add_argument("--speedup", action="store_true",
-                   help="bf16 serving and retraining: not ported yet "
-                        "(ROADMAP A10)")
+                   help="bf16 serving through the folded chain AND bf16 "
+                        "mixed-precision retraining, TF32 for f32 products "
+                        "(not reproducible against parity mode)")
     p.add_argument("--seedfix", action="store_true")
     p.add_argument("--vis", action="store_true")
     p.add_argument("--memo", type=str, default="test")
@@ -96,11 +101,12 @@ def parse_args(argv=None):
 
 
 def setup_opt(opt):
-    """The run seed, and parity mode: f32 everywhere, no TF32."""
+    """The run seed, and the precision: parity mode (f32 everywhere, no
+    TF32) unless --speedup."""
     import torch
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    speedup = bool(getattr(opt, "speedup", False))
+    torch.backends.cudnn.allow_tf32 = speedup
+    torch.set_float32_matmul_precision("high" if speedup else "highest")
     opt.seed = None
     if opt.seedfix:
         opt.seed = 166

@@ -38,8 +38,19 @@
 //     channels past P.
 //   - f32: 3xTF32.  The consumers split every tile that lands into
 //     hi = tf32_rna(a), written in place, and lo = tf32_rna(a - hi), in a
-//     second buffer, and accumulate a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi:
-//     the error is of the order of f32 rounding, not of TF32's.
+//     second buffer, and sum a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi, for
+//     each k-step (8 channels) into a fresh accumulator, which an f32 FADD
+//     (round to nearest) then adds to the running sum ("promotion").  The
+//     tensor core aligns a wgmma's terms to the largest and truncates the
+//     rest; summed into one accumulator over all of K (up to 4608) that
+//     cut every product to the running sum's last bit, and on trained
+//     weights K1 sat 5x further from an f64 forward than cuDNN's f32.
+//     Promoted a k-step, each wgmma's sum is aligned to its own products:
+//     as close to f64 as cuDNN on trained weights, 6x further on sums that
+//     cancel to a few percent (the truncation's bias remains; ROADMAP C1).
+//     The k-step's wait serialises its three wgmmas: about 12% slower than
+//     promotion a k-block.  scripts/k1_f32_precision.py builds the other
+//     schemes it was chosen from.
 //   - Epilogue: acc*s + b in f32 is staged in shared memory (the ring's
 //     memory, free by then), then each thread takes 16 bytes of a row: adds
 //     the residual, ReLU, rounds (__float2bfloat16_rn for bf16) and stores
@@ -241,7 +252,7 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
 // d (64 x BN f32 per warpgroup) += A (64 x K-step) * B (BN x K-step)^T,
 // both operands K-major in shared memory
 __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -251,11 +262,11 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : ACC32(d)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
-                                                uint64_t db) {
+                                                uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -269,11 +280,11 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : ACC64(d)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -283,11 +294,11 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1;\n}\n"
       : ACC32(d)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
-                                                uint64_t db) {
+                                                uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
@@ -301,7 +312,7 @@ __device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1;\n}\n"
       : ACC64(d)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 
@@ -310,29 +321,29 @@ struct Mma;
 template <>
 struct Mma<__nv_bfloat16, 64> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
-    wgmma_bf16_n64(d, a, b);
+                                             uint64_t b, int scale_d = 1) {
+    wgmma_bf16_n64(d, a, b, scale_d);
   }
 };
 template <>
 struct Mma<__nv_bfloat16, 128> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-    wgmma_bf16_n128(d, a, b);
+                                             uint64_t b, int scale_d = 1) {
+    wgmma_bf16_n128(d, a, b, scale_d);
   }
 };
 template <>
 struct Mma<float, 64> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
-                                             uint64_t b) {
-    wgmma_tf32_n64(d, a, b);
+                                             uint64_t b, int scale_d = 1) {
+    wgmma_tf32_n64(d, a, b, scale_d);
   }
 };
 template <>
 struct Mma<float, 128> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
-                                             uint64_t b) {
-    wgmma_tf32_n128(d, a, b);
+                                             uint64_t b, int scale_d = 1) {
+    wgmma_tf32_n128(d, a, b, scale_d);
   }
 };
 
@@ -517,8 +528,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int g = tid >> 7;   // warpgroup: rows 64 g .. 64 g + 63
   const int t = tid & 127;
   float acc[BN / 2];
+  // f32: one k-step's products, before they are added to acc
+  float part[Cfg<T>::SPLIT ? BN / 2 : 1];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (Cfg<T>::SPLIT ? BN / 2 : 1); ++i) part[i] = 0.f;
 
   for (int kb = 0; kb < nk; ++kb) {
     const int s = kb % S;
@@ -528,6 +543,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (CONV3) fence_async_shared();
     fence_operands(acc);
     if constexpr (Cfg<T>::SPLIT) {
+      fence_operands(part);
       uint8_t* a_lo = b_tile + TL::B_BYTES + g * (TL::A_BYTES / 2);
       uint8_t* b_lo = b_tile + TL::B_BYTES + TL::A_BYTES;
       split_tile(a_tile, a_lo, TL::A_BYTES / 2, t, 128);
@@ -539,10 +555,22 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kk = 0; kk < K_STEPS; ++kk) {
         const uint64_t da = smem_desc(a_tile) + 2 * kk;
         const uint64_t db = smem_desc(b_tile) + 2 * kk;
-        // the small terms first, then hi * hi
-        Mma<T, BN>::run(acc, smem_desc(a_lo) + 2 * kk, db);
-        Mma<T, BN>::run(acc, da, smem_desc(b_lo) + 2 * kk);
-        Mma<T, BN>::run(acc, da, db);
+        const uint64_t dal = smem_desc(a_lo) + 2 * kk;
+        const uint64_t dbl = smem_desc(b_lo) + 2 * kk;
+        // promotion a k-step: the step's products into `part` (zeroed
+        // by its first wgmma, scale-d 0), hi * hi last, so that the tensor
+        // core aligns that sum to the products and not to a running sum;
+        // then `part` is added to acc
+        Mma<T, BN>::run(part, dal, db, 0);
+        Mma<T, BN>::run(part, da, dbl);
+        Mma<T, BN>::run(part, da, db);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(part);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+        fence_operands(acc);
+        wgmma_fence();
       }
     } else {
       wgmma_fence();

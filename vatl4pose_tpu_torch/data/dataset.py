@@ -1,7 +1,8 @@
 """Video pose datasets (PoseTrack21 / JRDB-Pose) — array-oriented.
 
-The port's own copy of vatl4pose_tpu/data/dataset.py (the in-memory path
-only; the streaming frame store is not ported yet).  Per-person items from
+The port's own copy of vatl4pose_tpu/data/dataset.py: the whole-video
+frames for the card (load_frames) and the host-RAM frame store for the
+streaming paths (frame_store, data/stream.py).  Per-person items from
 COCO-format jsons are filtered (non-degenerate clipped bbox, non-zero
 keypoints, >=1 visible) and sorted by the composite id
 int(str(ann_id)[-D:] + str(image_id)) (D=2 PoseTrack, 3 JRDB), so that
@@ -30,7 +31,8 @@ JRDB_JOINT_PAIRS = [[1, 2], [0, 4], [3, 4], [8, 10], [5, 7], [10, 13],
 
 
 def decode_frame(path: str) -> np.ndarray:
-    """Decode one frame → (H, W, 3) uint8 RGB."""
+    """Decode one frame → (H, W, 3) uint8 RGB.  `.npy` frames need no
+    cv2 (which the card's machine does not have); any other file does."""
     if path.endswith(".npy"):
         return np.load(path)
     import cv2
@@ -74,6 +76,10 @@ class VideoPoseData:
 
     def __len__(self):
         return len(self.paths)
+
+    def item_img_wh(self) -> np.ndarray:
+        """(N, 2) image (w, h) per item."""
+        return self.frame_sizes[self.frame_idx]
 
 
 class VideoPoseDataset:
@@ -190,9 +196,16 @@ class VideoPoseDataset:
         frames = [decode_frame(p) for p in self.data.frame_paths]
         shapes = {f.shape for f in frames}
         if len(shapes) != 1:
-            raise ValueError(f"mixed frame sizes {shapes}: the port has no "
-                             "streaming frame store yet")
+            raise ValueError(
+                f"mixed frame sizes {shapes}: use frame_store() with the "
+                "streaming pipeline (data/stream.py), not load_frames()")
         return np.stack(frames).astype(np.uint8)
+
+    def frame_store(self, cache_bytes: int = 2 << 30):
+        """Host-RAM lazy frame store for the streaming paths."""
+        from .stream import FrameStore
+        return FrameStore(self.data.frame_paths, self.data.frame_sizes,
+                          cache_bytes=cache_bytes)
 
     def __len__(self):
         return len(self.data)

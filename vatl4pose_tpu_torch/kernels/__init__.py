@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels (sources in ../csrc) with their plain
 PyTorch versions.  Each wrapper counts its kernel launches in its
-`launches` attribute."""
+`launches` attribute, K1 and K3 also by dtype (`launches_by_dtype`: the
+stream's, the crops')."""
 
 from .fused_bottleneck import (bottleneck_chain_reference, fold_bn,
                                fused_bottleneck_chain)
@@ -13,3 +14,5 @@ KERNELS = (fused_bottleneck_chain, fused_postprocess, rot_warp_crop)
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+        if hasattr(k, "launches_by_dtype"):
+            k.launches_by_dtype.clear()

@@ -17,10 +17,14 @@ rows need 16-byte strides).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
+
+_DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 __all__ = ["fold_bn", "fused_bottleneck_chain", "bottleneck_chain_reference"]
 
@@ -115,7 +119,9 @@ def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
                                           b3)), N, H, W, C, P, nb, stream)
     _build.check(err, "fused_bottleneck_chain")
     fused_bottleneck_chain.launches += 1
+    fused_bottleneck_chain.launches_by_dtype[_DTYPE[x.dtype]] += 1
     return out
 
 
 fused_bottleneck_chain.launches = 0
+fused_bottleneck_chain.launches_by_dtype = Counter()

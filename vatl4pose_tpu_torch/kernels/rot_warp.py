@@ -18,6 +18,8 @@ version only for CPU tensors; any other device raises.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -99,7 +101,9 @@ def rot_warp_crop(frames, frame_idx, inv_mats, out_size, dtype=torch.float32):
                                   *(float(m) for m in RGB_MEAN), stream)
     _build.check(err, entry)
     rot_warp_crop.launches += 1
+    rot_warp_crop.launches_by_dtype[_OUT[dtype]] += 1
     return out
 
 
 rot_warp_crop.launches = 0
+rot_warp_crop.launches_by_dtype = Counter()

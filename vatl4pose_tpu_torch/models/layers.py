@@ -21,16 +21,19 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     The batch statistics come from the same F.batch_norm call, run with
     momentum 1 into scratch buffers (which then hold the batch mean and the
-    unbiased variance); the running buffers are updated from those."""
+    unbiased variance); the running buffers are updated from those.  A
+    bf16 input (bf16 retraining) is normalized as Flax does it: the
+    statistics and the affine in f32, the output rounded to bf16."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         c = self.num_features
-        batch_mean = torch.zeros(c, dtype=x.dtype, device=x.device)
-        batch_var = torch.zeros(c, dtype=x.dtype, device=x.device)
-        y = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias,
-                         True, 1.0, self.eps)
+        stat = torch.promote_types(x.dtype, torch.float32)
+        batch_mean = torch.zeros(c, dtype=stat, device=x.device)
+        batch_var = torch.zeros(c, dtype=stat, device=x.device)
+        y = F.batch_norm(x, batch_mean, batch_var, self.weight.to(stat),
+                         self.bias.to(stat), True, 1.0, self.eps)
         n = x.numel() // c
         m = self.momentum
         with torch.no_grad():

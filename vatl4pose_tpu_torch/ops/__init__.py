@@ -10,5 +10,6 @@ from .oks import (COCO_SIGMAS, COCO_VARS, JRDB_SIGMAS, JRDB_VARS, compute_oks,
                   oks_matrix)
 from .peaks import localpeak_mean, max_filter2d
 from .temporal import temporal_neighbor_weights, thc_scores
-from .warp import (RGB_MEAN, crop_batch, crop_geometry, warp_affine_bilinear,
-                   warp_affine_bilinear_batch, warp_axis_aligned_batch)
+from .warp import (RGB_MEAN, crop_batch, crop_geometry, normalize_crops,
+                   warp_affine_bilinear, warp_affine_bilinear_batch,
+                   warp_axis_aligned_batch)

@@ -27,7 +27,7 @@ from .affine import box_to_center_scale, center_scale_to_box, get_affine_transfo
 
 __all__ = ["warp_affine_bilinear", "warp_affine_bilinear_batch",
            "warp_axis_aligned_batch", "crop_geometry", "crop_batch",
-           "RGB_MEAN"]
+           "normalize_crops", "RGB_MEAN"]
 
 # peak-memory cap for the (chunk, H, W, C) gathered-frames buffer: large
 # source frames are warped in sub-chunks under it
@@ -162,3 +162,15 @@ def crop_batch(frames, frame_idx, bboxes_xyxy, input_size, aspect_ratio=None,
                              dtype=dtype), bbox_crop
     return warp_axis_aligned_batch(frames, fi, inv_mats, out_size,
                                    dtype=dtype), bbox_crop
+
+
+def normalize_crops(crops_u8, device, dtype=torch.float32):
+    """Host-warped uint8 crops (N, h, w, 3) → on `device` (through pinned
+    memory, without waiting, from the host to a card), /255 - RGB_MEAN in
+    f32, then rounded once to `dtype`: the streaming paths' input."""
+    x = torch.as_tensor(crops_u8)
+    if device.type == "cuda" and x.device.type == "cpu":
+        x = x.pin_memory().to(device, non_blocking=True)
+    x = x.to(device, torch.float32) / 255.0 \
+        - torch.as_tensor(RGB_MEAN, device=device)
+    return x.to(dtype)

@@ -14,8 +14,15 @@ The JAX package fuses steps into `lax.scan` chunks (STEP_CHUNK, a
 host link.  Eager PyTorch dispatches each step's kernels directly, so the
 port runs one optimizer step per batch and none of that is ported; the
 loss and accuracy still stay on the card until one fetch at the end.
-bf16 retraining and the streaming path (ROADMAP A10) and data-parallel
-retraining (A14) are not ported yet and raise.
+
+bf16 (`bf16=True`, RETRAIN.BF16 or --speedup) is the JAX package's mixed
+precision: bf16 copies of the parameters and bf16 activations go through
+the forward and backward, while the f32 master weights, the optimizer's
+state, the BatchNorm running statistics and the loss stay f32.  The
+module's own parameters stay f32 between steps, so the scoring engine
+folds BN from f32 weights.  `retrain_streaming` trains on the host warp's
+crops (data/stream.CropStreamer) for frames that stay in host RAM.
+Data-parallel retraining (ROADMAP A14) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..device import resolve_device
 from ..kernels.rot_warp import rot_warp_crop
 from ..models.criterion import masked_heatmap_loss
 from ..ops.heatmap import gaussian_target
+from ..ops.warp import normalize_crops
 from ..utils.metrics import acc_tensor
 from .optim import build_optimizer, exponential_lr, set_lr
 
@@ -66,9 +74,6 @@ class Retrainer:
                  aug: Optional[AugCfg] = None, joint_pairs=None,
                  seed: int = 166, bf16: bool = False, mesh=None,
                  device=None):
-        if bf16 or retrain_cfg.get("BF16", False):
-            raise NotImplementedError(
-                "bf16 retraining is not ported yet (ROADMAP A10)")
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel retraining is not ported yet (ROADMAP A14)")
@@ -77,6 +82,7 @@ class Retrainer:
         self.model = model
         self.cfg = retrain_cfg
         self.model_type = model_type
+        self.bf16 = bool(bf16 or retrain_cfg.get("BF16", False))
         self.input_size = tuple(input_size)
         self.hm_size = tuple(hm_size)
         self.sigma = float(sigma)
@@ -108,17 +114,35 @@ class Retrainer:
         (N, K), valid (N,) bool, as tensors on the device or numpy arrays.
         Returns the (2,) device tensor (loss, acc); the gradients stay in
         the parameters' `.grad`."""
-        f32 = torch.float32
+        # K3 writes the bf16 crops as the f32 crop rounded once, as the
+        # JAX package casts its f32 crops
         crops = rot_warp_crop(frames, self._upload(frame_idx, torch.int64),
-                              self._upload(inv_mats, f32), self.input_size)
+                              self._upload(inv_mats, torch.float32),
+                              self.input_size, dtype=self._crop_dtype())
+        return self._fit(crops, joints, vis, valid)
+
+    def train_step_crops(self, crops_u8, joints, vis, valid):
+        """One optimizer step on host-warped uint8 crops (N, oh, ow, 3),
+        normalized on the device; otherwise as `train_step`."""
+        return self._fit(normalize_crops(crops_u8, self.device,
+                                         self._crop_dtype()),
+                         joints, vis, valid)
+
+    def _crop_dtype(self):
+        return torch.bfloat16 if self.bf16 else torch.float32
+
+    def _fit(self, crops, joints, vis, valid):
+        f32 = torch.float32
         # (N, oh, ow, 3) is the channels-last layout of (N, 3, oh, ow); a
         # float64 model (a reference step) takes the crops in its dtype
-        x = crops.permute(0, 3, 1, 2).to(next(self.model.parameters()).dtype)
+        x = crops.permute(0, 3, 1, 2)
+        if not self.bf16:
+            x = x.to(next(self.model.parameters()).dtype)
         target, tw = gaussian_target(self._upload(joints, f32),
                                      self._upload(vis, f32), self.hm_size,
                                      self.sigma)
         mask = tw[:, :, None, None]
-        out = self.model(x)
+        out = self._forward(x).to(f32)
         loss = masked_heatmap_loss(out, target, mask,
                                    valid=self._upload(valid, torch.bool))
         self.optimizer.zero_grad(set_to_none=True)
@@ -126,6 +150,17 @@ class Retrainer:
         self.optimizer.step()
         acc = acc_tensor(out.detach().float(), target * mask)
         return torch.stack([loss.detach().float(), acc])
+
+    def _forward(self, x):
+        """The model in train mode; under bf16 through bf16 copies of its
+        f32 parameters (the casts are differentiated, so the f32 masters
+        get f32 gradients; the BN buffers stay f32 and are updated in
+        place, from f32 batch statistics: models/layers.BatchNorm2d)."""
+        if not self.bf16:
+            return self.model(x)
+        params = {k: p.to(torch.bfloat16) if p.dtype == torch.float32
+                  else p for k, p in self.model.named_parameters()}
+        return torch.func.functional_call(self.model, params, (x,))
 
     def retrain(self, data, frames, indices, num_epochs: int, img_wh,
                 log=None):
@@ -184,9 +219,36 @@ class Retrainer:
             log(f"loss: {loss_avg:.7f} | acc: {acc_avg:.4f}")
         return loss_avg, acc_avg
 
-    def retrain_streaming(self, *args, **kwargs):
-        raise NotImplementedError(
-            "streaming retraining is not ported yet (ROADMAP A10)")
+    def retrain_streaming(self, streamer, indices, num_epochs: int,
+                          log=None):
+        """`num_epochs` epochs over `indices` on the crops of `streamer`
+        (data/stream.CropStreamer: its own seeded geometry, host-warped
+        uint8 crops made ahead by a thread), for frames that stay in host
+        RAM.  The last batch of an epoch is cycle-padded to the batch
+        size, as in `retrain`.  Trains the model in place and returns the
+        sample-weighted (loss, acc) averages."""
+        bs = self.batch_size
+        stats, counts = [], []
+        was_training = self.model.training
+        self.model.train()
+        try:
+            for _ in range(num_epochs):
+                set_lr(self.optimizer, self.lr_of(self.epoch_counter))
+                for crops, joints, vis, n in streamer.epoch(indices):
+                    valid = np.zeros(bs, bool)
+                    valid[:n] = True
+                    crops, joints, vis = (np.resize(a, (bs,) + a.shape[1:])
+                                          for a in (crops, joints, vis))
+                    stats.append(self.train_step_crops(crops, joints, vis,
+                                                       valid))
+                    counts.append(n)
+                self.epoch_counter += 1
+        finally:
+            self.model.train(was_training)
+        loss_avg, acc_avg = _weighted_stats(stats, counts)
+        if log:
+            log(f"loss: {loss_avg:.7f} | acc: {acc_avg:.4f}")
+        return loss_avg, acc_avg
 
 
 class AETrainer:
