@@ -13,7 +13,9 @@ Phases, each of which fails the run on error, each with its wall time:
      main paths, with CUDA-event times, bounds and errors: K1 (bottleneck
      chain; beside its bound its design's unfused byte floor, as a
      yardstick the same chain through cuDNN, and in f32 both versions'
-     distance from the chain in f64), K2 (heatmap post-process)
+     distance from the chain in f64, on random operands and, ROADMAP C1's
+     check, on sums that cancel: K1 at most twice cuDNN's), K2 (heatmap
+     post-process)
      and K3 (the crop, from uint8 and float32 frames to f32 and bf16
      crops: the retrain batch of 120 rotated, flipped and edge crops, and
      the scoring chunk of 512 rot=0 crops; beside it its copy variant,
@@ -64,7 +66,15 @@ Phases, each of which fails the run on error, each with its wall time:
      video (every round's query list equal) and from random weights
      (printed: there even the CPU's fused and unfused graphs pick apart),
      beside K1's plain version and the unfused graph;
-  9. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+  9. the other strategies: one scoring pass of each of TPC, MPE, Margin,
+     Entropy and VL4Pose (R50 at 256x192, 512 samples, f32: K3 1, K1 4
+     and K2 1 launches a pass; VL4Pose's one backbone pass feeds the head,
+     the AuxNet and the embedding), its stage 2 on the card against the
+     CPU's on the same heatmaps; the loop through the CLI's functions on
+     MPE + K-Means and on VL4Pose + weighted (checked as phase 5's, and
+     every round's query holds query_size distinct candidates); two grid
+     trials of --optimize's UNC_LAMBDA study (run_study);
+ 10. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -73,6 +83,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import shutil
@@ -301,7 +312,10 @@ def phase_chain_kernel(dtype, gen):
     the tensor cores' peak, in f32 over the lesser of the CUDA cores' time
     and three TF32 products' time.  Beside it this design's unfused byte
     floor (4 stream sizes a block: the stream read twice and written once,
-    y1 and y2 written and read) and the cuDNN chain as a yardstick."""
+    y1 and y2 written and read) and the cuDNN chain as a yardstick.  In
+    f32 also ROADMAP C1's check on the cancelling operands of
+    tests/test_torch_cuda.py: K1 at most twice cuDNN's f32 distance from
+    the chain in f64."""
     import torch
     from vatl4pose_tpu_torch.kernels.fused_bottleneck import (
         bottleneck_chain_reference, fused_bottleneck_chain)
@@ -370,15 +384,42 @@ def phase_chain_kernel(dtype, gen):
         f"plain {tot['plain_ms']:.3f} ms")
     if f32:
         log(f"K1 f32 (3xTF32, a k-step's products promoted to an f32 "
-            f"sum; 48.375 ms without promotion on an H100 80GB HBM3 at "
-            f"700 W): max|err|/max "
-            f"from the f64 chain {tot['f64_err']:.3e}, its plain "
-            f"version's {tot['plain_f64_err']:.3e} (1.6e-5 without "
-            f"promotion)")
+            f"sum, each part's last bit set; 55.194 ms without the last "
+            f"bit on an H100 80GB HBM3 at 700 W): max|err|/max from the "
+            f"f64 chain {tot['f64_err']:.3e}, its plain version's "
+            f"{tot['plain_f64_err']:.3e} (2.4e-7 without the last bit); "
+            f"bound {tot['bound_ms']:.3f} ms (3F / 495 TFLOP/s)")
+        tot.update(cancelling_check())
     log(f"K1 yardstick (not used by the port): the cuDNN chain, "
         f"{str(dtype)[6:]}, channels-last, 3*nb F.conv2d with eager "
         f"epilogues: {tot['cudnn_ms']:.3f} ms")
     return tot
+
+
+def cancelling_check():
+    """ROADMAP C1: K1's f32 chain on the cancelling operands of
+    tests/test_torch_cuda.py (R50's last stage, sums that cancel to a few
+    percent), max|err| / max from the chain in f64, at most twice that of
+    cuDNN's f32 chain (K1's plain version, TF32 off)."""
+    import numpy as np
+    import torch
+    from tests.test_torch_cuda import _chain_f64, cancelling_chain_operands
+    from vatl4pose_tpu_torch.kernels.fused_bottleneck import (
+        bottleneck_chain_reference, fused_bottleneck_chain)
+    x, ws = cancelling_chain_operands("cuda", np.random.default_rng(8111))
+    exact = _chain_f64(x, ws)
+    scale = exact.abs().max().item()
+    e_k1 = (fused_bottleneck_chain(x, *ws).double() - exact).abs().max() \
+        .item() / scale
+    e_plain = (bottleneck_chain_reference(x, *ws).double() - exact).abs() \
+        .max().item() / scale
+    log(f"K1 f32 on cancelling sums (C1), max|err|/max from f64: K1 "
+        f"{e_k1:.3e}, cuDNN f32 {e_plain:.3e}, ratio {e_k1 / e_plain:.2f} "
+        f"(bar 2; without the last bit: 6.2)")
+    if e_k1 > 2 * e_plain:
+        raise AssertionError(f"K1 f32 is {e_k1 / e_plain:.2f}x cuDNN's f32 "
+                             f"distance from f64 on cancelling sums")
+    return {"cancel_err": e_k1, "cancel_plain_err": e_plain}
 
 
 def planted_heatmaps(gen):
@@ -836,7 +877,7 @@ def phase_main_path(video, seed):
     # the same port on the CPU, first 32 samples, f32 (plain versions)
     ref = ScoringEngine(model_cpu, ScoringConfig(uncertainty="THC+WPU"),
                         ae_model=ae_cpu, chunk=32, device="cpu")
-    hm_cpu, emb_cpu, _ = ref.forward_video(video.frames, frame_idx[:32],
+    hm_cpu, emb_cpu, _, _ = ref.forward_video(video.frames, frame_idx[:32],
                                            bboxes[:32])
     # f32: TF32 off, so the GPU and CPU differ by summation order only;
     # bf16 rounds every layer's input to 8 mantissa bits over ~60 layers
@@ -1098,7 +1139,8 @@ class CallLog:
     """Counts the calls of the AL loop's entry points (a scoring pass,
     resident or streamed; an optimizer step, on device crops or host
     crops) and keeps round 0's coreset arguments, the scoring engine, the
-    ActiveLearning instance and each host warp's size and wall time, by
+    ActiveLearning instance, each host warp's size and wall time and each
+    round's filter (candidates, clamped query size, query, wall time), by
     wrapping the functions for the duration of the loop."""
 
     def __init__(self):
@@ -1106,6 +1148,7 @@ class CallLog:
         self.coreset_args = None
         self.engine = self.al = None
         self.host_warps = []          # (crops, seconds)
+        self.filters = []
         self._undo = []
 
     def wrap(self, owner, name, before, timed=None):
@@ -1143,6 +1186,15 @@ class CallLog:
 
         def on_warp(crops, seconds):
             self.host_warps.append((len(crops), seconds))
+
+        pending = []
+
+        def on_filter(al, candidate_list, *a, **kw):
+            pending.append((al, list(candidate_list)))
+
+        def filtered(query, seconds):
+            al, cands = pending.pop()
+            self.filters.append((cands, al.query_size, list(query), seconds))
         self.wrap(scoring.ScoringEngine, "score", on_score)
         self.wrap(scoring.ScoringEngine, "score_streaming", on_score)
         self.wrap(retrain.Retrainer, "train_step", on_step)
@@ -1150,6 +1202,8 @@ class CallLog:
         self.wrap(active_learning, "coreset_selection", on_coreset)
         self.wrap(active_learning.ActiveLearning, "eval_and_query", on_round)
         self.wrap(stream, "warp_crops_host", lambda *a, **kw: None, on_warp)
+        self.wrap(active_learning.ActiveLearning, "_apply_filter", on_filter,
+                  filtered)
         return self
 
     def __exit__(self, *exc):
@@ -1266,16 +1320,15 @@ def write_weights(tmp, cfg, model, ae):
         tmp, "ae", "Hybrid", "WholeBodyAE_zdim4.pth"))
 
 
-def run_cli_loop(cfg, argv, tmp, prepare=True):
-    """The port's CLI loop (setup_opt, set_dir, prepare_synthetic when
-    `prepare`, do_al, save_result) in tmp, with the launch counters reset
-    before do_al and read after it.  Returns (result.json, the
-    cycle_times.jsonl lines, launches, launches by dtype, CallLog, loop
-    wall s).  The parity flags (TF32 off) are set again afterwards."""
+@contextlib.contextmanager
+def cli_workdir(cfg, argv, tmp, prepare=True):
+    """The CLI's set-up in tmp (parse_args, setup_opt, set_dir, and
+    prepare_synthetic when `prepare`); yields (cfg, opt).  Afterwards back
+    in the old directory, the parity flags (TF32 off) set again and the
+    synthetic video removed."""
     import os
     import torch
     from vatl4pose_tpu_torch.cli import run_active_learning as cli
-    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
     cwd = os.getcwd()
     opt = cli.parse_args(argv)
     os.chdir(tmp)                          # set_dir writes under ./exp
@@ -1284,6 +1337,25 @@ def run_cli_loop(cfg, argv, tmp, prepare=True):
         opt = cli.set_dir(cfg, opt)
         if prepare:
             cfg = cli.prepare_synthetic(cfg, opt)
+        yield cfg, opt
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        if prepare:
+            shutil.rmtree(cfg.DATASET.EVAL.ROOT, ignore_errors=True)
+
+
+def run_cli_loop(cfg, argv, tmp, prepare=True):
+    """The port's CLI loop (cli_workdir's set-up, do_al, save_result) in
+    tmp, with the launch counters reset before do_al and read after it.
+    Returns (result.json, the cycle_times.jsonl lines, launches, launches
+    by dtype, CallLog, loop wall s)."""
+    import os
+    import torch
+    from vatl4pose_tpu_torch.cli import run_active_learning as cli
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+    with cli_workdir(cfg, argv, tmp, prepare) as (cfg, opt):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1299,12 +1371,6 @@ def run_cli_loop(cfg, argv, tmp, prepare=True):
         rj = json.load(open(cli.save_result(cfg, opt, result)))
         cycles = [json.loads(line) for line in
                   open(os.path.join(opt.work_dir, "cycle_times.jsonl"))]
-    finally:
-        os.chdir(cwd)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-        if prepare:
-            shutil.rmtree(cfg.DATASET.EVAL.ROOT, ignore_errors=True)
     return rj, cycles, counts, by_dtype, calls, loop_s
 
 
@@ -1895,6 +1961,242 @@ def phase_c1_loop(card, seed):
     return res
 
 
+OTHER_STRATEGIES = ("TPC", "MPE", "Margin", "Entropy", "VL4Pose")
+# the loops of phase 9, as run_active_learning.sh drives them
+OTHER_LOOPS = (("MPE", "K-Means"), ("VL4Pose", "weighted"))
+STUDY_TRIALS = 2
+
+
+def phase_other_scoring(video, seed):
+    """One ScoringEngine.score pass of each other strategy over phase 3's
+    512 samples, SimplePose-R50 at 256x192 in f32 parity mode (phase 3's
+    seeded weights; VL4Pose with an AuxNet of the seeded default init):
+    K3 once, K1 4 times and K2 once a pass, counted from 0 before each.
+    Then stage 2 again on the same pass's heatmaps, on the card (timed) and
+    on the CPU: MPE, Margin and Entropy within 1e-5 (rtol; -inf equal;
+    Entropy again on the maps' magnitudes, where at least half of the
+    samples must have a finite entropy);
+    TPC's counts equal on every sample whose joints, and whose
+    neighbours' joints, decode alike on both (within 1e-2 px: the same
+    heatmap pixel); VL4Pose within 1e-5 (rtol)
+    on every sample whose top-5 peaks sit at the same places on both.
+    Returns launches, pass walls and stage-2 ms by strategy."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from vatl4pose_tpu_torch.models import AuxNet
+    from vatl4pose_tpu_torch.ops import peak_local_max_topk
+
+    model, _ = make_models(seed)
+    model.cuda()
+    aux = AuxNet()
+    frames, fi, bb, gt, bb_ann, prev, nxt = video.args
+    n = len(fi)
+    host = [torch.as_tensor(np.asarray(a), dtype=dt) for a, dt in (
+        (gt, torch.float32), (bb_ann, torch.float32), (prev, torch.bool),
+        (nxt, torch.bool))]
+    out, failed = {}, []
+    for u in OTHER_STRATEGIES:
+        cfg = ScoringConfig(uncertainty=u)
+        engine = ScoringEngine(model, cfg, aux_model=aux, chunk=BATCH)
+        engine.score(*video.args, keep_heatmaps=False)      # warm
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = engine.score(*video.args, keep_heatmaps=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in KERNELS}
+        want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
+                "rot_warp_crop": 1}
+        if counts != want:
+            failed.append(f"{u}: launches {counts}, want {want}")
+        unc = res["unc"]
+        if unc.shape != (n,) or not (np.isfinite(unc) | (
+                (u == "Entropy") & (unc == -np.inf))).all():
+            failed.append(f"{u}: unc {unc.shape}, not finite")
+
+        hms, _, bbox_crop, params = engine.forward_video(frames, fi, bb)
+        dev_args = (hms, bbox_crop, *(h.cuda() for h in host), params)
+        cpu_engine = ScoringEngine(model, cfg, aux_model=aux, device="cpu")
+
+        def stage2_pair(maps):
+            """Stage 2 on the card and on the CPU on the same maps."""
+            return (engine._score_video(maps, *dev_args[1:]),
+                    cpu_engine._score_video(
+                        maps.cpu(), bbox_crop.cpu(), *host,
+                        None if params is None else params.cpu()))
+
+        stage2_ms = cuda_ms(lambda: engine._score_video(*dev_args), reps=5)
+        card, cpu = stage2_pair(hms)
+        g, w = card["unc"].cpu().numpy(), cpu["unc"].numpy()
+        # K2's decode is bit-exact against its plain version; the image
+        # coords then differ by the affine's rounding, a heatmap pixel by
+        # whole image pixels
+        alike = ((card["coords"].cpu() - cpu["coords"]).abs()
+                 .amax(dim=(1, 2)) < 1e-2).numpy()
+        if u == "TPC":
+            ok = alike & np.roll(alike, 1) & np.roll(alike, -1)
+        elif u == "VL4Pose":
+            pk = [peak_local_max_topk(h) for h in (hms.float(),
+                                                   hms.float().cpu())]
+            ok = ((pk[0][2].cpu() == pk[1][2]) & (pk[0][3].cpu() == pk[1][3])
+                  & (pk[0][1].cpu() == pk[1][1])).all(dim=(1, 2)).numpy()
+        else:
+            ok = np.ones(n, bool)
+        with np.errstate(invalid="ignore"):       # -inf - -inf (Entropy)
+            diff = np.where(np.isinf(w) & (g == w), 0.0, np.abs(g - w))
+        if u == "TPC":
+            bad = (g != w) & ok
+        else:
+            bad = ok & ~(diff <= 1e-5 * np.where(np.isinf(w), 0, np.abs(w))
+                         + 1e-6)
+        scan_ms = cuda_ms(lambda: peak_local_max_topk(hms.float()), reps=5) \
+            if u in ("MPE", "Margin", "VL4Pose") else None
+        log(f"  {u}: pass {wall:.3f} s, launches {counts}; stage 2 "
+            f"{stage2_ms:.3f} ms on the card"
+            + (f" (peak scan {scan_ms:.3f} ms)" if scan_ms else "")
+            + f"; card vs CPU stage 2: max|diff| {diff.max():.3e} "
+            f"(|unc|max {np.where(np.isinf(w), 0, np.abs(w)).max():.3e})"
+            f", samples compared {ok.mean():.3f}, outside the bound "
+            f"{int(bad.sum())}")
+        if bad.any() or ok.mean() < 0.5:
+            failed.append(f"{u}: card and CPU stage 2 apart on {bad.sum()} "
+                          f"samples, {ok.mean():.3f} compared")
+        out[u] = {"pass_s": wall, "stage2_ms": stage2_ms,
+                  "peak_scan_ms": scan_ms, "launches": counts,
+                  "compared_share": float(ok.mean())}
+        if u == "Entropy":
+            # the seeded maps hold negative values, whose entropy is -inf
+            # on both sides; their magnitudes give finite entropies
+            gp, wp = (r["unc"].cpu().numpy() for r in stage2_pair(hms.abs()))
+            finite = np.isfinite(gp) & np.isfinite(wp)
+            diff_p = np.where(finite, np.abs(gp - wp), 0.0)
+            scale = np.where(finite, np.abs(wp), 0.0)
+            bad_p = finite & ~(diff_p <= 1e-5 * scale + 1e-6)
+            log(f"  Entropy on |maps|: card vs CPU stage 2 max|diff| "
+                f"{diff_p.max():.3e} (|unc|max {scale.max():.3e}), finite "
+                f"share {finite.mean():.3f}, outside the bound "
+                f"{int(bad_p.sum())}")
+            if finite.mean() < 0.5 or bad_p.any():
+                failed.append(f"Entropy on |maps|: {int(bad_p.sum())} apart, "
+                              f"finite share {finite.mean():.3f}")
+            out[u]["finite_share_abs_maps"] = float(finite.mean())
+        del hms, params, dev_args, card
+    del model, aux
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("other strategies: " + "; ".join(failed))
+    return out
+
+
+def phase_other_loops(video, card, seed):
+    """The AL loop through the CLI's functions on MPE with the K-Means
+    filter and on VL4Pose with the weighted filter, as phase 5 drives DUW
+    (AL_CFG, 9 rounds and the final evaluation, RETRAIN.ALPHA 4, phase 3's
+    seeded weights, --continual --seedfix, f32).  Checked as phase 5's
+    loop (fields, percentages to 100, every sample queried once, K1 4x and
+    K2 1x a pass, K3 once a pass and once a step, all f32), and every
+    round's query holds query_size distinct members of that round's
+    candidate list."""
+    from vatl4pose_tpu_torch.config import Cfg
+    n = len(video.data)
+    rounds = len(AL_CFG["VAL"]["QUERY_RATIO"])
+    out = {}
+    for unc, flt in OTHER_LOOPS:
+        label = f"AL loop {unc} + {flt}"
+        with tempfile.TemporaryDirectory() as tmp:
+            model, ae = make_models(seed)
+            cfg = Cfg(copy.deepcopy(AL_CFG))
+            write_weights(tmp, cfg, model, ae)
+            del model, ae
+            argv = [
+                "--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
+                "--video_id", "000001", "--uncertainty", unc,
+                "--representativeness", "None", "--filter", flt,
+                "--continual", "--seedfix", "--synthetic", "--memo",
+                "chip_smoke", "--synth_seed", str(seed),
+                "--synth_frames", str(VIDEO["num_frames"]),
+                "--synth_persons", str(VIDEO["num_persons"]),
+                "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+            rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
+                cfg, argv, tmp)
+        phase_sums, table, failed = loop_report(
+            label, rj, cycles, counts, calls, loop_s, n, rounds, card)
+        passes, steps = calls.score_calls, calls.train_steps
+        want = {"fused_bottleneck_chain": 4 * passes,
+                "fused_postprocess": passes, "rot_warp_crop": passes + steps}
+        want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
+                      "rot_warp_crop": {"f32": passes + steps}}
+        if passes != rounds + 1 or steps == 0 or counts != want \
+                or by_dtype != want_dtype:
+            failed.append(f"launches {counts} {by_dtype}, want {want} "
+                          f"{want_dtype}")
+        for r, (cands, size, q, sec) in enumerate(calls.filters):
+            log(f"{label} round {r}: {flt} filter {sec * 1e3:.1f} ms, "
+                f"{len(q)} of {len(cands)} candidates (query size {size})")
+            # the final evaluation has no candidates: nothing to query
+            if cands and (len(q) != size or len(set(q)) != len(q)
+                          or not set(q) <= set(cands)):
+                failed.append(f"round {r}: query {q} for size {size}")
+        if failed:
+            raise AssertionError(f"{label}: " + "; ".join(failed))
+        out[f"{unc}_{flt}"] = {
+            "loop_s": loop_s, "passes": passes, "train_steps": steps,
+            "launches": counts, "phase_s": phase_sums, "rounds": table,
+            "filter_ms": [1e3 * r[3] for r in calls.filters]}
+    return out
+
+
+def phase_study(seed):
+    """optimize_alc's study (run_study: the objective, the grid sampler and
+    Study.optimize, without the two plots, which need matplotlib) for
+    STUDY_TRIALS trials, each the DUW loop over phase 3's synthetic video
+    with the study's own QUERY_RATIO (6 rounds), from phase 3's seeded
+    weights; counters from 0 before it.  Checked: each trial's ALC is
+    finite, the trials took the grid's first values, K1, K2 and K3 ran."""
+    import math
+    import torch
+    from vatl4pose_tpu_torch.cli import run_active_learning as cli
+    from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+    with tempfile.TemporaryDirectory() as tmp:
+        model, ae = make_models(seed)
+        cfg = Cfg(copy.deepcopy(AL_CFG))
+        write_weights(tmp, cfg, model, ae)
+        del model, ae
+        argv = ["--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
+                "--video_id", "000001", "--uncertainty", "THC+WPU",
+                "--representativeness", "Influence", "--filter", "Coreset",
+                "--continual", "--seedfix", "--synthetic", "--optimize",
+                "--search", "grid", "--memo", "chip_smoke",
+                "--synth_seed", str(seed),
+                "--synth_frames", str(VIDEO["num_frames"]),
+                "--synth_persons", str(VIDEO["num_persons"]),
+                "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+        with cli_workdir(cfg, argv, tmp) as (cfg, opt):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            study = cli.run_study(cfg, opt, [opt.video_id],
+                                  n_trials=STUDY_TRIALS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k.__name__: k.launches for k in KERNELS}
+    hist = study.history()
+    log(f"study: {len(hist)} trials in {wall:.2f} s: " + ", ".join(
+        f"unc_lambda {p['unc_lambda']} ALC {v:.4f}" for _, p, v in hist)
+        + f"; best ALC {study.best_value:.4f} at {study.best_params}; "
+        f"launches {counts}")
+    if [p["unc_lambda"] for _, p, _ in hist] != [0.001, 0.01][:STUDY_TRIALS] \
+            or not all(math.isfinite(v) for _, _, v in hist) \
+            or min(counts.values()) == 0:
+        raise AssertionError(f"study: {hist}, launches {counts}")
+    return {"wall_s": wall, "trials": [[p, v] for _, p, v in hist],
+            "best_value": study.best_value, "best_params": study.best_params,
+            "launches": counts}
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -1963,24 +2265,37 @@ def main():
     log("AL loop wall and split, s: f32 " + json.dumps(
         dict(al["phase_s"], wall=al["loop_s"])) + "; --speedup "
         + json.dumps(dict(al_bf16["phase_s"], wall=al_bf16["loop_s"])))
-    del video
     torch.cuda.empty_cache()
     phase("phase 7: streaming AL loop")
     stream = phase_streaming_loop(card, seed)
     phase("phase 8: C1, the loop on the card against the CPU")
     c1 = phase_c1_loop(card, seed)
-    phase("phase 9: result")
+    phase("phase 9: the other strategies")
+    other = {"scoring": phase_other_scoring(video, seed),
+             "loops": phase_other_loops(video, card, seed),
+             "study": phase_study(seed)}
+    del video
+    phase("phase 10: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
     # with --speedup, 7 streaming) and the card's C1 loop (phase 8)
     al_n, bf_n, st_n, c1_n = (r["launches"] for r in (al, al_bf16, stream,
                                                       c1))
+    # phase 9's paths, f32: the five scoring passes, the two loops, the study
+    other_n = {"other_scoring": {
+        k: sum(r["launches"][k] for r in other["scoring"].values())
+        for k in counts["f32"]}}
+    other_n.update({f"al_loop_{key}": r["launches"]
+                    for key, r in other["loops"].items()})
+    other_n["optimize_study"] = other["study"]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
                            st_n["fused_bottleneck_chain"],
-                           "c1_loop": c1_n["fused_bottleneck_chain"]},
+                           "c1_loop": c1_n["fused_bottleneck_chain"],
+                           **{k: v["fused_bottleneck_chain"]
+                              for k, v in other_n.items()}},
                    "bf16": {"scoring_bf16":
                             counts["bf16"]["fused_bottleneck_chain"],
                             "al_loop_speedup":
@@ -2002,7 +2317,8 @@ def main():
                    "al_loop": al_n["fused_postprocess"],
                    "al_loop_speedup": bf_n["fused_postprocess"],
                    "al_loop_streaming": st_n["fused_postprocess"],
-                   "c1_loop": c1_n["fused_postprocess"]}
+                   "c1_loop": c1_n["fused_postprocess"],
+                   **{k: v["fused_postprocess"] for k, v in other_n.items()}}
     kernels.append({
         "name": "heatmap_postprocess_f32", "route": "cuda",
         "source": "vatl4pose_tpu_torch/csrc/postprocess.cu",
@@ -2021,7 +2337,9 @@ def main():
                               "scoring_f32": counts["f32"]["rot_warp_crop"],
                               "al_loop": al_n["rot_warp_crop"],
                               "al_loop_streaming": st_n["rot_warp_crop"],
-                              "c1_loop": c1_n["rot_warp_crop"]},
+                              "c1_loop": c1_n["rot_warp_crop"],
+                              **{k: v["rot_warp_crop"]
+                                 for k, v in other_n.items()}},
                    "u8_bf16": {"scoring_bf16":
                                counts["bf16"]["rot_warp_crop"],
                                "al_loop_speedup": bf_n["rot_warp_crop"]}}
@@ -2040,9 +2358,12 @@ def main():
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
                     "al_loop": al, "al_loop_speedup": al_bf16,
                     "al_loop_streaming": stream, "c1_loop": c1,
+                    "other_strategies": other,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],
+                        "cancelling": k1["f32"]["cancel_err"],
+                        "cancelling_cudnn": k1["f32"]["cancel_plain_err"],
                         "retrained": al["fold_check"]},
                     "k1_unfused_floor_ms": {m: k1[m]["floor_ms"] for m in k1},
                     "k1_cudnn_chain_ms": {m: k1[m]["cudnn_ms"] for m in k1},

@@ -4,10 +4,10 @@ summation scheme, each measured on one card against float64.
 
     python3 scripts/k1_f32_precision.py [--no-loop]
 
-The shipped kernel (csrc/fused_bottleneck.cu) sums its TF32 products one
-way, scheme 6.  scripts/k1_f32_schemes.patch turns it into the study
-source, in which a macro K1_F32_SCHEME picks one of seven (the patch lists
-them); the patched source must hash to STUDY_SHA256, the source this
+The shipped kernel (csrc/fused_bottleneck.cu) splits its f32 operands and
+sums their products one way, scheme 12.  scripts/k1_f32_schemes.patch turns
+it into the study source, in which a macro K1_F32_SCHEME picks one of 13
+(the patch lists them); the patched source must hash to STUDY_SHA256, the source this
 study measured, or the script refuses.  Each scheme is compiled with nvcc
 into build/k1_study/ and, while it is measured, bound in place of the
 shipped library, so that kernels.fused_bottleneck_chain launches it.
@@ -44,13 +44,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PATCH = ROOT / "scripts" / "k1_f32_schemes.patch"
 STUDY_SHA256 = \
-    "ba69c9c64158cffaccff686c357e0d0f58e0ae2934411571aa377d421f23eff6"
+    "283bf7744e6d0018c2e058a28f11b6026642d5f7062cdf8e38539e5cd0d7505a"
 SCHEMES = {0: "3 products, one accumulator", 1: "hi*hi only",
            2: "4 products, one accumulator",
            3: "3 products, promotion a k-block",
            4: "hi*hi and corrections apart",
            5: "4 products, promotion a k-block",
-           6: "3 products, promotion a k-step"}
+           6: "3 products, promotion a k-step",
+           7: "bf16x6, promotion a k-step",
+           8: "bf16x6, promotion a k-block",
+           9: "bf16x6, promotion a k-step, sign flipped every second",
+           10: "3 products, promotion a k-step, sign flipped every second",
+           11: "bf16x6, promotion a k-step, last bit set",
+           12: "3 products, promotion a k-step, last bit set"}
 LIBS = {}        # scheme -> its bound ctypes library
 PTXAS = {}       # scheme -> nvcc's -Xptxas -v report
 

@@ -28,6 +28,7 @@ import torch
 import jax.numpy as jnp
 
 from tests.test_torch_models import random_flax_variables
+from vatl4pose_tpu.al import selection as jsel
 from vatl4pose_tpu.al.active_learning import ActiveLearning as JaxAL
 from vatl4pose_tpu.cli import run_active_learning as jax_cli
 from vatl4pose_tpu.config import Cfg as JaxCfg
@@ -217,12 +218,38 @@ def test_cli_main_synthetic_writes_result(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag,item", [
     ("data_parallel", "A14"), ("vis", "A13"), ("vis_thc", "A13"),
-    ("vis_wpu", "A13"), ("K-Means", "A11"), ("weighted", "A11")])
+    ("vis_wpu", "A13")])
 def test_unported_options_raise(setup, flag, item):
     tmp, cfg = setup
-    kw = {"filter": flag} if flag in ("K-Means", "weighted") else {flag: True}
     with pytest.raises(NotImplementedError, match=item):
-        ActiveLearning(Cfg(copy.deepcopy(cfg)), Opt(str(tmp / "x"), **kw))
+        ActiveLearning(Cfg(copy.deepcopy(cfg)),
+                       Opt(str(tmp / "x"), **{flag: True}))
+
+
+@pytest.mark.parametrize("flt", ["K-Means", "weighted"])
+def test_kmeans_filter_options_match_jax(setup, flt):
+    """The loop's K-Means and weighted filters (_apply_filter) against the
+    JAX package's selection as its loop calls it (ActiveLearning.py
+    :541-552 of the JAX package: the weighted filter's weights
+    1 + W_UNC * combine_weight * total score, dedupe, and the query-size
+    clamps), on the same seeded embeddings: the same picks."""
+    tmp, cfg = setup
+    al = ActiveLearning(Cfg(copy.deepcopy(cfg)),
+                        Opt(str(tmp / f"f_{flt}"), filter=flt))
+    rng = np.random.default_rng(31)
+    emb = np.maximum(rng.normal(0, 1, (10, 512)), 0).astype(np.float32)
+    emb[7] = emb[2]                                  # a repeated embedding
+    unlabeled = [0, 2, 3, 5, 6, 7, 8, 9]
+    total = rng.uniform(0, 1, len(unlabeled))
+    for query_size, want_size in ((3, 3), (9, 8)):
+        al.query_size = query_size
+        got = al._apply_filter(sorted(unlabeled), total, emb, 0.4, unlabeled)
+        kw = dict(weight=1 + cfg["VAL"]["W_UNC"] * 0.4 * total,
+                  dedupe=True) if flt == "weighted" else {}
+        assert al.query_size == want_size
+        assert got == jsel.kmeans_filter(emb, sorted(unlabeled), want_size,
+                                         **kw)
+        assert set(got) <= set(unlabeled) and len(set(got)) == len(got)
 
 
 def test_speedup_loop_runs_to_the_end(setup):
@@ -243,9 +270,36 @@ def test_speedup_loop_runs_to_the_end(setup):
                for u in got[4].values())
 
 
-def test_optimize_refused():
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(["--video_id", "1", "--optimize", "--uncertainty", "HP"])
+def test_optimize_matches_jax(setup, monkeypatch):
+    """--optimize's study (run_study; the JAX package's optimize_alc, its
+    Study.optimize held to the same 2 trials): the grid's first two
+    UNC_LAMBDA values, each an HP + Coreset loop over the video with
+    QUERY_RATIO [0.05, 0.1, 0.2, 0.3, 0.4, 1].  The same trial params and
+    the same best params; the ALCs (AP .95 with annotations, x100) within
+    1e-4.  RETRAIN.ALPHA 0 keeps the estimator as it is (the study's
+    objective is the loop, whatever it retrains), so that the test stays
+    short; so the APs are round 0's, which the DUW test holds to 1e-6."""
+    from vatl4pose_tpu.al import optuna_lite as jax_optuna
+    tmp, cfg = setup
+    cfg = copy.deepcopy(cfg)
+    cfg["RETRAIN"]["ALPHA"] = 0
+    base = dict(uncertainty="HP", representativeness="None",
+                filter="Coreset", strategy="HP_Coresetfilter",
+                optimize=True, synthetic=True, search="grid")
+    orig = jax_optuna.Study.optimize
+    monkeypatch.setattr(jax_optuna.Study, "optimize",
+                        lambda self, f, n_trials: orig(self, f, 2))
+    jopt = Opt(str(tmp / "opt_jax"), **base)
+    want = jax_cli.optimize_alc(JaxCfg(copy.deepcopy(cfg)), jopt, ["000001"])
+    opt = Opt(str(tmp / "opt_port"), **base)
+    got = cli.run_study(Cfg(copy.deepcopy(cfg)), opt, ["000001"], n_trials=2)
+    assert [p for _, p, _ in got.history()] \
+        == [p for _, p, _ in want.history()] \
+        == [{"unc_lambda": 0.001}, {"unc_lambda": 0.01}]
+    assert got.best_params == want.best_params
+    np.testing.assert_allclose([v for _, _, v in got.history()],
+                               [v for _, _, v in want.history()], rtol=0,
+                               atol=1e-4)
 
 
 def test_weights_and_device_are_never_guessed(setup, monkeypatch):

@@ -499,3 +499,95 @@ def test_streamed_scoring_matches_resident_on_card(cuda, tmp_path):
                                    err_msg=k)
     close = np.isclose(outs[0]["kpts"], res["kpts"], rtol=2e-2, atol=1.0)
     assert close.mean() > 0.99, close.mean()
+
+
+def strategy_maps(gen, n, device):
+    """(n, 17, 64, 48) f32 maps: noise with three blobs a map, every 4th
+    sample all negative, every 4th + 1 constant, every 4th + 2 with its
+    blobs pushed into the 5-pixel border."""
+    yy = torch.arange(64, dtype=torch.float32)[:, None]
+    xx = torch.arange(48, dtype=torch.float32)[None, :]
+    hms = torch.randn(n, 17, 64, 48, generator=gen) * 0.02
+    for _ in range(3):
+        cy = torch.rand(n, 17, 1, 1, generator=gen) * 64
+        cx = torch.rand(n, 17, 1, 1, generator=gen) * 48
+        amp = torch.rand(n, 17, 1, 1, generator=gen) * 0.8 + 0.2
+        hms += amp * torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 6.0)
+    hms[0::4] = -hms[0::4].abs() - 0.5
+    hms[1::4] = 0.25
+    hms[2::4, :, 5:-5, 5:-5] = 0.0
+    return hms.to(device)
+
+
+@pytest.mark.cuda
+def test_peak_scan_and_criteria_on_card_match_cpu(cuda):
+    """The batched peak scan and MPE, Margin and Entropy on the card
+    against the same functions on the CPU, at the scoring shape (64 of
+    512 samples x 17 joints of 64x48 maps): the scan's values, validity
+    and places exactly (a max, compares and a first-index argmax, no
+    sums), the criteria within 1e-5 (rtol; softmax and log on the card's
+    math library), -inf entropies where the CPU has them, and finite
+    entropies of positive maps within 1e-5 too."""
+    from vatl4pose_tpu_torch.ops import (compute_entropy, compute_margin,
+                                         compute_mpe, peak_local_max_topk)
+    hms = strategy_maps(torch.Generator().manual_seed(41), 64, cuda)
+    got = peak_local_max_topk(hms)
+    want = peak_local_max_topk(hms.cpu())
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want[1][3::4].sum(-1).ge(2).float().mean() > 0.5
+    assert not want[1][0::4].any() and not want[1][1::4].any()
+    for fn in (compute_mpe, compute_margin, compute_entropy):
+        g, w = fn(hms).cpu().numpy(), fn(hms.cpu()).numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
+                                   err_msg=fn.__name__)
+    # every map above holds a negative or a constant value, so its entropy
+    # is -inf or log(3072)·17; positive maps with blobs give real values
+    pos = hms[3::4].abs() + 1e-3
+    g = compute_entropy(pos).cpu().numpy()
+    w = compute_entropy(pos.cpu()).numpy()
+    assert np.isfinite(w).all() and len(np.unique(w)) == len(w)
+    np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_vl4pose_pass_runs_one_backbone_through_k1(cuda, tmp_path):
+    """A VL4Pose scoring pass on the card: the split pass (backbone once,
+    then the head, the AuxNet and the embedding) launches K1 four times a
+    chunk, K2 once a chunk and K3 once a chunk, and its heatmaps and
+    embeddings are those of an unsplit pass, within 1e-5 of their scale
+    (cuDNN's convolutions are not bit-reproducible from run to run
+    unless held to deterministic algorithms: 1-ulp differences)."""
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.data import build_dataset, make_synthetic_video
+    from vatl4pose_tpu_torch.models import AuxNet, SimplePose
+    root, ann = make_synthetic_video(str(tmp_path), num_frames=5,
+                                     num_persons=2, width=160, height=128)
+    ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root, "ANN": ann})
+    d = ds.data
+    args = (d.frame_idx, d.bboxes, d.gt_keypoints,
+            np.stack([d.bboxes[:, 0], d.bboxes[:, 1],
+                      d.bboxes[:, 2] - d.bboxes[:, 0],
+                      d.bboxes[:, 3] - d.bboxes[:, 1]], 1),
+            d.is_prev, d.is_next)
+    model = he_scaled_(SimplePose(
+        num_joints=17, num_layers=50, deconv_dim=(32, 32, 32),
+        fused_eval=True, device="cpu"), torch.Generator().manual_seed(6))
+    model = model.to(cuda)
+    frames = torch.from_numpy(ds.load_frames()).to(cuda)
+    cfg = ScoringConfig(uncertainty="VL4Pose", input_size=(128, 96))
+    engine = ScoringEngine(model, cfg, aux_model=AuxNet(device=cuda), chunk=4)
+    reset_launch_counts()
+    res = engine.score(frames, *args)
+    n_chunks = -(-len(d) // 4)
+    assert fused_bottleneck_chain.launches == 4 * n_chunks
+    assert fused_postprocess.launches == 1
+    assert rot_warp_crop.launches == n_chunks
+    assert np.isfinite(res["unc"]).all() and res["unc"].any()
+    plain = ScoringEngine(model, ScoringConfig(uncertainty="None",
+                                               input_size=(128, 96)),
+                          chunk=4).score(frames, *args)
+    for key in ("heatmaps", "embeddings"):
+        got, want = (torch.as_tensor(r[key]).float().cpu()
+                     for r in (res, plain))
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max(), key

@@ -79,3 +79,45 @@ assert not leaked, leaked
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_strategy_modules_run_without_refused_packages():
+    """The modules of the other strategies are among those imported and
+    run behind the same finder: the K-Means filter (no sklearn), the
+    UNC_LAMBDA study (its plots need matplotlib, the study does not), the
+    LSH kNN, the AuxNet and VL4Pose's tree score."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import numpy as np
+import torch
+assert {"vatl4pose_tpu_torch.models.auxnet", "vatl4pose_tpu_torch.ops.vl4pose",
+        "vatl4pose_tpu_torch.al.ann", "vatl4pose_tpu_torch.al.optuna_lite",
+        "vatl4pose_tpu_torch.al.kmeans"} <= set(names)
+from vatl4pose_tpu_torch.al import ann, optuna_lite
+from vatl4pose_tpu_torch.al.selection import kmeans_filter
+from vatl4pose_tpu_torch.models import AuxNet
+from vatl4pose_tpu_torch.ops.vl4pose import vl4pose_scores
+rng = np.random.default_rng(0)
+emb = rng.random((30, 16)).astype(np.float32)
+picks = kmeans_filter(emb, list(range(30)), 4, weight=1 + rng.random(30),
+                      dedupe=True)
+assert len(set(picks)) == 4
+study = optuna_lite.create_study(
+    sampler=optuna_lite.GridSampler({"x": [0.5, 2.0]}))
+study.optimize(lambda t: -abs(t.suggest_float("x", 0.1, 10) - 2), 2)
+assert study.best_params == {"x": 2.0}
+try:
+    study.plot_history("unused.png")
+    raise AssertionError("plot_history ran without matplotlib")
+except ImportError:
+    pass
+assert ann.LshTransformer(n_neighbors=3).fit_transform(emb).nnz > 0
+params = AuxNet(in_channels=8, device="cpu")(torch.rand(2, 8, 4, 3))
+assert params.shape == (2, 16, 2)
+hms = torch.rand(2, 17, 24, 24)
+assert torch.isfinite(vl4pose_scores(hms, params.detach())).all()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -292,7 +292,7 @@ def test_k1_study_patch_rebuilds_the_measured_source():
     study = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(study)
     text = study.study_source()
-    assert "#define K1_F32_SCHEME 6" in text
+    assert "#define K1_F32_SCHEME 12" in text
     shipped = (root / "vatl4pose_tpu_torch" / "csrc" /
                "fused_bottleneck.cu").read_text()
     assert "K1_F32_SCHEME" not in shipped

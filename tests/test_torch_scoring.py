@@ -17,13 +17,18 @@ from vatl4pose_tpu.data.dataset import build_dataset
 from vatl4pose_tpu.data.synthetic import make_synthetic_video
 from vatl4pose_tpu.models import SimplePose as FlaxSimplePose
 from vatl4pose_tpu.models import WholeBodyAE as FlaxWholeBodyAE
+from vatl4pose_tpu.models.auxnet import AuxNet as FlaxAuxNet
 from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
-from vatl4pose_tpu_torch.models import (SimplePose, WholeBodyAE,
+from vatl4pose_tpu_torch.data import build_dataset as port_build_dataset
+from vatl4pose_tpu_torch.models import (AuxNet, SimplePose, WholeBodyAE,
                                         state_dict_from_flax)
 
 torch.set_num_threads(1)
 RNG = np.random.default_rng(6007)
 INPUT = (64, 48)
+# the TPC, peak and VL4Pose branches' crops: 32x24 maps leave room for
+# several peaks 6 px apart inside the 5-px border (16x12 maps hold one)
+INPUT_PEAKS = (128, 96)
 MARGIN = 1e-4
 
 
@@ -39,6 +44,8 @@ def slice_setup(tmp_path_factory):
         width=160, height=128)
     ds = build_dataset(Cfg({"TYPE": "Posetrack21", "ROOT": root,
                             "ANN": ann}))
+    port_ds = port_build_dataset({"TYPE": "Posetrack21", "ROOT": root,
+                                  "ANN": ann})
     d = ds.data
     frames = ds.load_frames()
     bbox_ann = np.stack([d.bboxes[:, 0], d.bboxes[:, 1],
@@ -50,6 +57,8 @@ def slice_setup(tmp_path_factory):
                                       jnp.zeros((1,) + INPUT + (3,)), RNG)
     ae_vars = random_flax_variables(FlaxWholeBodyAE(), jnp.zeros((1, 38)),
                                     RNG)
+    aux_vars = random_flax_variables(FlaxAuxNet(),
+                                     jnp.zeros((1, 2, 2, 2048)), RNG)
     jax_engine = JaxScoringEngine(
         FlaxSimplePose(**NARROW, fused_eval=True),
         JaxScoringConfig(uncertainty="THC+WPU", input_size=INPUT),
@@ -62,14 +71,18 @@ def slice_setup(tmp_path_factory):
     model.load_state_dict(state_dict_from_flax(variables, "SimplePose"))
     ae = WholeBodyAE(device="cpu")
     ae.load_state_dict(state_dict_from_flax(ae_vars, "WholeBodyAE"))
+    aux = AuxNet(device="cpu")
+    aux.load_state_dict(state_dict_from_flax(aux_vars, "auxnet"))
     return dict(frames=frames, args=args, ref=ref, model=model, ae=ae,
-                jax_engine=jax_engine, ae_vars=ae_vars)
+                aux=aux, jax_engine=jax_engine, ae_vars=ae_vars,
+                aux_vars=aux_vars, variables=variables, ds=ds,
+                port_ds=port_ds)
 
 
-def port_engine(s, uncertainty="THC+WPU", **kw):
+def port_engine(s, uncertainty="THC+WPU", input_size=INPUT, **kw):
     return ScoringEngine(s["model"], ScoringConfig(
-        uncertainty=uncertainty, input_size=INPUT, **kw),
-        ae_model=s["ae"], chunk=3, device="cpu")
+        uncertainty=uncertainty, input_size=input_size, **kw),
+        ae_model=s["ae"], aux_model=s["aux"], chunk=3, device="cpu")
 
 
 def top2_margin(hms):
@@ -150,6 +163,58 @@ def test_bf16_serving_runs_and_tracks_f32(slice_setup):
 
 @pytest.mark.parametrize("unc", ["TPC", "MPE", "Margin", "Entropy",
                                  "VL4Pose"])
-def test_unported_branches_raise(slice_setup, unc):
-    with pytest.raises(NotImplementedError, match="A11"):
-        port_engine(slice_setup, unc)
+def test_branch_matches_jax(slice_setup, unc):
+    """ScoringEngine.score and score_streaming of each branch against
+    the JAX engine's, VL4Pose with the same AuxNet weights.  The streamed
+    pairs share the host warp's uint8 crops; the port streams in chunks
+    of 3, so halo rows carry TPC's neighbours.  Tolerances: the heatmaps
+    differ by f32 summation order (about 1e-6 of their scale), so the
+    peak values behind MPE, Margin and VL4Pose's softmax and the flat
+    entropy agree to 1e-4 (rtol) and 1e-5 (atol); TPC's counts are
+    integers and must be equal on every sample whose joints, and whose
+    neighbours' joints, decode clear of an argmax near-tie (top-2 gap
+    over MARGIN)."""
+    s = slice_setup
+    frame_idx, bboxes, gt, bb_ann, is_prev, is_next = s["args"]
+    jax_engine = JaxScoringEngine(
+        FlaxSimplePose(**NARROW, fused_eval=True),
+        JaxScoringConfig(uncertainty=unc, input_size=INPUT_PEAKS),
+        aux_model=FlaxAuxNet(), chunk=8)
+    variables = jax.tree.map(jnp.asarray, s["variables"])
+    aux_vars = jax.tree.map(jnp.asarray, s["aux_vars"])
+    ref = jax_engine.score(variables, jnp.asarray(s["frames"]), *s["args"],
+                           aux_variables=aux_vars)
+    ref_stream = jax_engine.score_streaming(
+        variables, s["ds"].frame_store(), *s["args"],
+        aux_variables=aux_vars, keep_heatmaps=True)
+    engine = port_engine(s, unc, INPUT_PEAKS)
+    got = engine.score(s["frames"], *s["args"])
+    got_stream = engine.score_streaming(s["port_ds"].frame_store(),
+                                        *s["args"])
+    for r, g in ((ref, got), (ref_stream, got_stream)):
+        # entropy is -inf where a map holds negative values, as in JAX
+        assert (np.isfinite(g["unc"]) | (unc == "Entropy")).all()
+        assert g["unc"].any()
+        if unc != "TPC":
+            np.testing.assert_allclose(g["unc"], r["unc"], rtol=1e-4,
+                                       atol=1e-5)
+            continue
+        clear = (top2_margin(np.asarray(r["heatmaps"])) > MARGIN).all(1)
+        ok = clear & np.roll(clear, 1) & np.roll(clear, -1)
+        assert ok.sum() >= len(ok) // 2, ok
+        np.testing.assert_array_equal(g["unc"][ok], r["unc"][ok])
+
+
+def test_vl4pose_pass_splits_one_backbone(slice_setup):
+    """VL4Pose's stage 1 runs the backbone once: the head's heatmaps and
+    the embedding equal the unsplit forward's, and the link parameters
+    are the AuxNet's on that feature."""
+    s = slice_setup
+    engine = port_engine(s, "VL4Pose", INPUT_PEAKS)
+    hms, embs, _, aux = engine.forward_video(s["frames"], *s["args"][:2])
+    ref_hms, ref_embs, _, ref_aux = port_engine(
+        s, "None", INPUT_PEAKS).forward_video(s["frames"], *s["args"][:2])
+    torch.testing.assert_close(hms, ref_hms, rtol=0, atol=0)
+    torch.testing.assert_close(embs, ref_embs, rtol=0, atol=0)
+    assert tuple(aux.shape) == (len(s["args"][0]), 16, 2)
+    assert ref_aux is None and torch.isfinite(aux).all()

@@ -127,9 +127,32 @@ def test_coreset_plain_first_pick_in_range():
         assert got == jax_f64 and max(got) < 10
 
 
-def test_kmeans_filters_refused():
-    with pytest.raises(NotImplementedError, match="A11"):
-        sel.kmeans_filter(np.zeros((4, 2)), [0, 1], 1)
+def embedding_pool(seed, n, dim, repeats):
+    """GAP-like embeddings (ReLU'd, f32) with `repeats` rows equal to row
+    0, so that the weighted filter's dedupe has work to do."""
+    rng = np.random.default_rng(seed)
+    emb = np.maximum(rng.normal(0, 1, (n, dim)), 0).astype(np.float32)
+    emb[1:1 + repeats] = emb[0]
+    cands = sorted(rng.choice(n, n - 4, replace=False).tolist())
+    total = rng.uniform(0, 1, len(cands))
+    return emb, cands, total
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("seed,n,dim,k", [
+    (0, 40, 64, 5), (1, 64, 512, 9), (2, 120, 2048, 17), (3, 24, 32, 20)])
+def test_kmeans_filter_matches_jax(weighted, seed, n, dim, k):
+    """The port's numpy K-Means against the JAX package's sklearn one, as
+    the AL loop calls each filter (the weighted one with the loop's
+    weights 1 + w_unc * combine_weight * total and dedupe): the same picks
+    in the same order, exactly."""
+    emb, cands, total = embedding_pool(seed, n, dim, repeats=3)
+    kw = dict(weight=1 + 0.01 * 0.4 * total, dedupe=True) if weighted \
+        else {}
+    got = sel.kmeans_filter(emb, cands, k, **kw)
+    want = jsel.kmeans_filter(emb, cands, k, **kw)
+    assert got == want
+    assert len(set(got)) == len(got) <= k and set(got) <= set(cands)
 
 
 def test_al_metrics_equal_jax():

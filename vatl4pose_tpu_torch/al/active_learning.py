@@ -30,9 +30,11 @@ The port's own design:
     is given and missing raises.  --from_scratch (and an empty
     AE.PRETRAINED_ROOT) takes PyTorch's init under torch.manual_seed(seed),
     which is not Flax's init: such runs do not match the JAX package's.
-  - Not ported yet, and so refused: --data_parallel (A14),
-    --vis/--vis_thc/--vis_wpu (A13), the VL4Pose and other A11 scorers,
-    and the K-Means and weighted filters (A11).
+  - VL4Pose: an AuxNet on the estimator's stride-32 feature, initialised
+    from a generator seeded 318 (not Flax's PRNGKey(318) bits); one
+    backbone pass feeds the head, the AuxNet and the embedding.
+  - Not ported yet, and so refused: --data_parallel (A14) and
+    --vis/--vis_thc/--vis_wpu (A13).
 
 Device work per round: one chunked forward over the whole video and the
 stage-2 scoring (al/scoring.py), the cosine product and the f32 coreset
@@ -55,7 +57,8 @@ from ..data.pipeline import AugCfg
 from ..device import resolve_device
 from ..eval.cocoeval import evaluate_map
 from ..eval.ospa import ospa_for_loc
-from ..models import build_sppe, build_wholebody_ae, state_dict_from_flax
+from ..models import (AuxNet, build_sppe, build_wholebody_ae,
+                      state_dict_from_flax)
 from ..ops import compute_hybrid
 from ..train.retrain import AETrainer, Retrainer
 from ..utils.profiling import CycleTimer
@@ -118,8 +121,6 @@ class ActiveLearning:
             if getattr(opt, flag, False):
                 raise NotImplementedError(
                     f"--{flag} is not ported yet (ROADMAP {item})")
-        if opt.filter in ("K-Means", "weighted"):
-            kmeans_filter()
         self.device = resolve_device(device if device is not None
                                      else getattr(opt, "device", None))
         self.cfg = cfg
@@ -165,6 +166,7 @@ class ActiveLearning:
         self.finished_oursc = 100
         self.query_ratio = list(cfg.VAL.QUERY_RATIO)
         self.unc_lambda = cfg.VAL.UNC_LAMBDA
+        self.w_unc = cfg.VAL.W_UNC
         self.query_sizes = [int(self.eval_len * x) for x in self.query_ratio]
         self.query_size = self.query_sizes[0]
         if self.one_by_one:
@@ -238,7 +240,17 @@ class ActiveLearning:
                 torch.from_numpy(self.data.raw_bbox_xywh),
                 torch.from_numpy(self.data.gt_keypoints)).numpy()
 
-        # ---- scoring engine (raises for the A11 scorers) ---------------------
+        # ---- VL4Pose auxiliary net ------------------------------------------
+        self.aux = None
+        if "VL4Pose" in self.strategy:
+            if cfg.MODEL.TYPE != "SimplePose":
+                raise ValueError("VL4Pose needs a backbone/head-split "
+                                 "estimator (SimplePose)")
+            depth = cfg.MODEL.get("NUM_LAYERS", 50)
+            self.aux = AuxNet(in_channels=2048 if depth >= 50 else 512,
+                              device=self.device)
+
+        # ---- scoring engine --------------------------------------------------
         need_emb = (self.representativeness not in ("None", "Random")
                     or self.filter not in ("None", "Random"))
         self.engine = ScoringEngine(
@@ -247,8 +259,8 @@ class ActiveLearning:
                           need_embedding=need_emb,
                           input_size=tuple(cfg.DATA_PRESET.IMAGE_SIZE),
                           eval_joints=self.eval_joints, bf16=self.speedup),
-            ae_model=self.ae, chunk=min(512, max(32, self.eval_len)),
-            device=self.device)
+            ae_model=self.ae, aux_model=self.aux,
+            chunk=min(512, max(32, self.eval_len)), device=self.device)
         self._log(f"[[AL strategy: {self.strategy}]] video {self.video_id} "
                   f"N={self.eval_len} model={cfg.MODEL.TYPE} "
                   f"device={self.device}")
@@ -438,7 +450,7 @@ class ActiveLearning:
         if self.filter == "None":
             candidate_list = rank_candidates(unlabeled_idx, total_score,
                                              top_k=self.query_size)
-        elif self.filter == "Coreset":
+        elif self.filter in ("weighted", "K-Means", "Coreset"):
             candidate_list = sorted(int(i) for i in unlabeled_idx)
         else:
             candidate_list = rank_candidates(unlabeled_idx, total_score,
@@ -447,7 +459,7 @@ class ActiveLearning:
         with self.timer.phase("select"):
             query_list = self._apply_filter(candidate_list, total_score,
                                             res.get("embeddings"),
-                                            unlabeled_idx)
+                                            combine_weight, unlabeled_idx)
 
         # ---- tl/tu/fl/fu ------------------------------------------------------
         thresh = self.finish_acc + self.finish_margin
@@ -489,10 +501,20 @@ class ActiveLearning:
                 "annotations": gt_json}
 
     def _apply_filter(self, candidate_list, total_score, embeddings,
-                      unlabeled_idx):
+                      combine_weight, unlabeled_idx):
         n_un = len(unlabeled_idx)
         if n_un in (0, 1) or self.filter == "None":
             return candidate_list
+        if self.filter == "weighted":
+            if n_un <= self.query_size:
+                self.query_size = n_un
+            weight = 1 + self.w_unc * combine_weight * np.asarray(total_score)
+            return kmeans_filter(embeddings, candidate_list, self.query_size,
+                                 weight=weight, dedupe=True)
+        if self.filter == "K-Means":
+            if n_un < self.query_size:
+                self.query_size = n_un
+            return kmeans_filter(embeddings, candidate_list, self.query_size)
         if self.filter == "Diversity":
             return diversity_filter(embeddings, candidate_list,
                                     self.query_size, self.device)

@@ -1,11 +1,14 @@
 """Whole-video scoring engine (counterpart of vatl4pose_tpu/al/scoring.py).
 
   stage 1 (chunked): crop on the device → model forward → heatmaps and the
-          2048-d embedding from the same backbone pass;
+          2048-d embedding from the same backbone pass (under VL4Pose the
+          pass is split: one backbone feature feeds the head, the AuxNet
+          and the embedding);
   stage 2 (whole video): decode through the post-process kernel
-          (kernels/postprocess.py) and the inverse crop affine, OKS, THC as
-          a shift along the track-sorted sample axis, WPU through the
-          hybrid feature and the autoencoder, the local-peak weight `gc`.
+          (kernels/postprocess.py) and the inverse crop affine, OKS, THC
+          and TPC as a shift along the track-sorted sample axis, WPU
+          through the hybrid feature and the autoencoder, the peak-based
+          MPE, Margin and VL4Pose, Entropy, the local-peak weight `gc`.
 
 `score_streaming` is the path for frames that stay in host RAM: the
 crops come from the host warp chunk by chunk, and stage 2 runs a chunk at
@@ -13,8 +16,9 @@ a time with a ±1-row halo, so the card holds O(chunk) of the video.
 
 Every sample's heatmap is computed once.  Eager PyTorch does not
 recompile per shape, so neither stage pads to a static size; the outputs
-for the real rows are the same.  Branches ported: THC_L1, THC_L2,
-THC+WPU, WPU, HP and None.
+for the real rows are the same.  Every branch of the JAX package's
+`_score_video` is ported: HP, TPC, THC_L1, THC_L2, THC+WPU, WPU, VL4Pose,
+MPE, Entropy, Margin and None.
 """
 
 from __future__ import annotations
@@ -28,12 +32,14 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.postprocess import fused_postprocess
-from ..ops import (bbox_xyxy_to_xywh, compute_hybrid, compute_oks,
-                   crop_batch, crop_to_image, normalize_crops, thc_scores)
+from ..ops import (bbox_xyxy_to_xywh, compute_entropy, compute_hybrid,
+                   compute_margin, compute_mpe, compute_oks, crop_batch,
+                   crop_to_image, normalize_crops, thc_scores, tpc_scores)
+from ..ops.vl4pose import vl4pose_scores
 
 UNC_NONE = "None"
-_PORTED = ("THC_L1", "THC_L2", "THC+WPU", "WPU", "HP", UNC_NONE)
-_NOT_PORTED = ("TPC", "MPE", "Margin", "Entropy", "VL4Pose")
+UNCERTAINTIES = ("HP", "TPC", "THC_L1", "THC_L2", "THC+WPU", "WPU",
+                 "VL4Pose", "MPE", "Entropy", "Margin", UNC_NONE)
 
 
 @dataclasses.dataclass
@@ -47,29 +53,36 @@ class ScoringConfig:
     # stats (the chain kernel still folds BN in f32); decode stays f32
     bf16: bool = False
 
+    @property
+    def vl4pose(self) -> bool:
+        return self.uncertainty == "VL4Pose"
+
 
 class ScoringEngine:
     """Runs the two-stage scoring pipeline for one model on one device.
 
     `model` is a SimplePose (its own weights; `fused_eval=True` routes the
     backbone's bottleneck tails through the chain kernel), `ae_model` the
-    WholeBodyAE that the WPU branches need.  device=None means CUDA.
+    WholeBodyAE that the WPU branches need, `aux_model` the AuxNet that
+    VL4Pose needs (it runs in f32 on the backbone feature, also under
+    bf16 serving, as the JAX package's f32 aux variables do).  device=None
+    means CUDA.
     """
 
     def __init__(self, model, cfg: ScoringConfig, ae_model=None,
-                 chunk: int = 512, device=None):
+                 aux_model=None, chunk: int = 512, device=None):
         u = cfg.uncertainty
-        if u in _NOT_PORTED:
-            raise NotImplementedError(
-                f"uncertainty {u} is not ported yet (ROADMAP A11)")
-        if u not in _PORTED:
+        if u not in UNCERTAINTIES:
             raise ValueError(f"Uncertainty type {u} is not supported")
         if "WPU" in u and ae_model is None:
             raise ValueError(f"uncertainty {u} needs ae_model")
+        if cfg.vl4pose and aux_model is None:
+            raise ValueError("uncertainty VL4Pose needs aux_model")
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
         self.ae_model = ae_model
+        self.aux_model = aux_model
         self.chunk = chunk
 
     # ---- stage 1: heatmaps + embeddings ----------------------------------
@@ -90,21 +103,29 @@ class ScoringEngine:
 
     def _model_outputs(self, model, crops):
         """(N, h, w, 3) normalized crops in the serving dtype →
-        heatmaps (in the model's dtype: stage 2 upcasts at entry) and f32
-        embeddings."""
+        heatmaps (in the model's dtype: stage 2 upcasts at entry), f32
+        embeddings and the AuxNet's f32 (N, L, 2) link parameters (None
+        unless VL4Pose)."""
         x = crops.permute(0, 3, 1, 2)
-        if self.cfg.need_embedding:
+        aux = None
+        if self.cfg.vl4pose:
+            # one backbone pass feeds the head, the AuxNet and the embedding
+            feat = model.backbone(x)
+            hm = model.head(feat)
+            aux = self.aux_model(feat.to(torch.float32)).to(torch.float32)
+            emb = feat.mean(dim=(2, 3))
+        elif self.cfg.need_embedding:
             hm, emb = model(x, return_embedding=True)
         else:
             hm = model(x)
             emb = torch.zeros((x.shape[0], 1), device=x.device)
-        return hm, emb.to(torch.float32)
+        return hm, emb.to(torch.float32), aux
 
     @torch.no_grad()
     def forward_video(self, frames, frame_idx, bboxes):
         """Chunked forward over all N samples.  frames: (F, H, W, 3) uint8
         or float in [0, 255].  Returns device tensors (N, K, h, w),
-        (N, E), (N, 4)."""
+        (N, E), (N, 4) and, under VL4Pose, (N, L, 2) (else None)."""
         frames = torch.as_tensor(frames, device=self.device)
         if frames.is_floating_point():       # the crop kernel reads f32
             frames = frames.to(torch.float32)
@@ -113,23 +134,22 @@ class ScoringEngine:
         model = self._serving_model()
         was_training = model.training
         model.eval()
-        hms, embs, crops_bb = [], [], []
+        outs = []
         try:
             for s in range(0, bboxes.shape[0], self.chunk):
                 e = s + self.chunk
-                hm, emb, bc = self._forward_chunk(model, frames,
-                                                  frame_idx[s:e], bboxes[s:e])
-                hms.append(hm)
-                embs.append(emb)
-                crops_bb.append(bc)
+                outs.append(self._forward_chunk(model, frames, frame_idx[s:e],
+                                                bboxes[s:e]))
         finally:
             model.train(was_training)
-        return torch.cat(hms), torch.cat(embs), torch.cat(crops_bb)
+        hms, embs, auxs, crops_bb = zip(*outs)
+        auxs = torch.cat(auxs) if self.cfg.vl4pose else None
+        return torch.cat(hms), torch.cat(embs), torch.cat(crops_bb), auxs
 
     # ---- stage 2: decode + criteria --------------------------------------
     @torch.no_grad()
     def _score_video(self, hms, bbox_crop, gt_kpts, bbox_ann_xywh, is_prev,
-                     is_next) -> Dict[str, torch.Tensor]:
+                     is_next, aux_params=None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         ej = torch.as_tensor(cfg.eval_joints, device=hms.device)
         pred = hms.index_select(1, ej).to(torch.float32).contiguous()
@@ -147,6 +167,9 @@ class ScoringEngine:
         u = cfg.uncertainty
         if u == "HP":
             unc = -scores.sum(dim=-1)
+        elif u == "TPC":
+            unc = tpc_scores(hm_coords, coords, bbox_crop, is_prev, is_next,
+                             (W, H))
         elif "THC" in u:
             norm = "L2" if "L2" in u else "L1"
             unc = thc_scores(pred, is_prev, is_next, norm_type=norm)
@@ -154,6 +177,14 @@ class ScoringEngine:
                 unc2 = self._wpu(bbox_crop, kpts_flat)
         elif "WPU" in u:
             unc = self._wpu(bbox_crop, kpts_flat)
+        elif u == "VL4Pose":
+            unc = vl4pose_scores(pred, aux_params)
+        elif u == "MPE":
+            unc = compute_mpe(pred)
+        elif u == "Entropy":
+            unc = compute_entropy(pred)
+        elif u == "Margin":
+            unc = compute_margin(pred)
         return {"coords": coords, "scores": scores, "kpts": kpts_flat,
                 "oks": oks, "det_score": det_score, "unc": unc, "unc2": unc2,
                 "gc": gc}
@@ -178,8 +209,9 @@ class ScoringEngine:
         halo row on each side (THC's neighbours are a shift along the
         sample axis, so one row reproduces the whole-video result), one
         chunk behind stage 1, so that at most two chunks of heatmaps are
-        on the card.  Returns what `score` returns; heatmaps, if kept, as
-        a CPU tensor."""
+        on the card; TPC's neighbour decodes and VL4Pose's link
+        parameters come with the halo rows too.  Returns what `score`
+        returns; heatmaps, if kept, as a CPU tensor."""
         from ..data.pipeline import eval_sample_geometry
         from ..data.stream import warp_crops_host
 
@@ -208,12 +240,16 @@ class ScoringEngine:
         outs, embs, hms_kept = {}, [], []
         prev_tail = None      # the previous chunk's last heatmap row
 
-        def stage2(s, e, hm, next_head):
+        def stage2(s, e, hm, aux, next_head):
             nonlocal prev_tail
             zero = torch.zeros_like(hm[:1])
             rows = torch.cat([zero if prev_tail is None else prev_tail, hm,
                               zero if next_head is None else next_head])
-            out = self._score_video(rows, *(halo(k, s, e) for k in host))
+            if aux is not None:
+                aux_zero = torch.zeros_like(aux[:1])
+                aux = torch.cat([aux_zero, aux, aux_zero])
+            out = self._score_video(rows, *(halo(k, s, e) for k in host),
+                                    aux)
             for k, v in out.items():
                 outs.setdefault(k, []).append(v[1:-1])
             prev_tail = hm[-1:]
@@ -228,14 +264,14 @@ class ScoringEngine:
                 crops = warp_crops_host(frame_store, frame_idx[s:e],
                                         fwd_mats[s:e], cfg.input_size,
                                         mode=warp_mode)
-                hm, emb = self._model_outputs(
+                hm, emb, aux = self._model_outputs(
                     model, normalize_crops(crops, dev, self._dtype()))
                 embs.append(emb)
                 if keep_heatmaps:
                     hms_kept.append(hm.cpu())
                 if pending is not None:
                     stage2(*pending, next_head=hm[:1])
-                pending = (s, e, hm)
+                pending = (s, e, hm, aux)
             if pending is not None:
                 stage2(*pending, next_head=None)
         finally:
@@ -254,7 +290,8 @@ class ScoringEngine:
         arrays coords (N, K, 2), scores (N, K), kpts (N, 3K), oks,
         det_score, unc, unc2, gc (N,), embeddings (N, E), bbox_crop (N, 4),
         and the device tensor heatmaps (N, K, h, w) if kept."""
-        hms, embs, bbox_crop = self.forward_video(frames, frame_idx, bboxes)
+        hms, embs, bbox_crop, aux = self.forward_video(frames, frame_idx,
+                                                       bboxes)
 
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -263,7 +300,7 @@ class ScoringEngine:
         out = self._score_video(
             hms, bbox_crop, dev(gt_kpts, torch.float32),
             dev(bbox_ann_xywh, torch.float32), dev(is_prev, torch.bool),
-            dev(is_next, torch.bool))
+            dev(is_next, torch.bool), aux)
         res = {k: v.cpu().numpy() for k, v in out.items()}
         res["embeddings"] = embs.cpu().numpy()
         res["bbox_crop"] = bbox_crop.cpu().numpy()

@@ -8,10 +8,10 @@ Reference ActiveLearning.py:
   - score combination (:486-519): min-max normalized uncertainty, THC+WPU
     fusion with const/increase/decrease scheduling, combine-weight mix;
   - candidate ranking (:529-541): stable descending sort of (idx, score);
-  - filters (:553-619): Diversity, Random and Coreset (k-center greedy
-    with an uncertainty-biased argmax, :798-850).  The K-Means and weighted
-    filters need a K-Means (sklearn in the JAX package) and are not ported
-    yet (ROADMAP A11).
+  - filters (:553-619): weighted K-Means and K-Means (al/kmeans.py, a
+    numpy copy of sklearn's KMeans, which the JAX package calls),
+    Diversity, Random and Coreset (k-center greedy with an
+    uncertainty-biased argmax, :798-850).
 
 Ranking and bookkeeping run on the host in float64 numpy.  The O(N²)
 embedding work runs on the device: the cosine matrix product, and the f32
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .kmeans import kmeans
 
 __all__ = [
     "cosine_distance_rowsums", "influence_scores", "minmax", "fuse_thc_wpu",
@@ -101,9 +102,34 @@ def rank_candidates(unlabeled_ids: Sequence[int], scores: np.ndarray,
     return sorted(ranked)
 
 
-def kmeans_filter(*args, **kwargs):
-    raise NotImplementedError(
-        "the K-Means and weighted filters are not ported yet (ROADMAP A11)")
+def kmeans_filter(embeddings: np.ndarray, candidate_list: List[int],
+                  query_size: int, weight: Optional[np.ndarray] = None,
+                  dedupe: bool = False, random_state: int = 318) -> List[int]:
+    """K-Means / weighted K-Means filters (:553-580, :593-611): cluster the
+    candidates (k-means++, seed 318), pick the member of each cluster
+    closest to its centroid.  With `weight` the samples are weighted; the
+    weighted filter also drops repeated embeddings first (np.unique, which
+    keeps each one's first index in sorted order)."""
+    emb = embeddings[candidate_list]
+    w = weight
+    if dedupe:
+        _, keep = np.unique(emb, axis=0, return_index=True)
+        emb = emb[keep]
+        if w is not None:
+            w = w[keep]
+    else:
+        keep = np.arange(len(emb))
+    k = min(query_size, len(emb))
+    cluster_idx, centroids = kmeans(emb, k, sample_weight=w,
+                                    random_state=random_state)
+    dis = ((emb - centroids[cluster_idx]) ** 2).sum(axis=1)
+    picked = []
+    for c in range(len(np.unique(cluster_idx))):
+        members = np.arange(emb.shape[0])[cluster_idx == c]
+        picked.append(members[dis[cluster_idx == c].argmin()])
+    if dedupe:
+        picked = [int(keep[p]) for p in picked]
+    return [int(candidate_list[p]) for p in picked]
 
 
 def diversity_filter(embeddings: np.ndarray, candidate_list: List[int],

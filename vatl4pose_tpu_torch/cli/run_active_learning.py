@@ -15,8 +15,10 @@ video instead of reading PoseTrack21/JRDB from disk.  --speedup serves
 and retrains in bf16 and lets f32 products use TF32, as the JAX package
 drops its 'highest' matmul precision; without it every f32 product is
 full f32 (parity mode).  A video whose frames exceed
-VAL.HBM_FRAME_BUDGET_GB streams from host RAM.  Not ported yet, and so
-refused: --optimize (ROADMAP A11), --data_parallel (A14),
+VAL.HBM_FRAME_BUDGET_GB streams from host RAM.  --optimize searches
+VAL.UNC_LAMBDA for the best mean ALC (al/optuna_lite.py, TPE or a grid;
+`run_study` needs no matplotlib, `optimize_alc` adds the two plots).  Not
+ported yet, and so refused: --data_parallel (A14),
 --vis/--vis_thc/--vis_wpu (A13).
 """
 
@@ -31,7 +33,8 @@ from datetime import datetime
 import numpy as np
 
 __all__ = ["parse_args", "setup_opt", "set_dir", "prepare_synthetic",
-           "prepare_dataset_paths", "do_al", "save_result", "main"]
+           "prepare_dataset_paths", "do_al", "save_result", "run_study",
+           "optimize_alc", "main"]
 
 
 def parse_args(argv=None):
@@ -64,8 +67,12 @@ def parse_args(argv=None):
                         "consumed in the reference, Run_active_learning.py:75)")
     p.add_argument("--continual", action="store_true")
     p.add_argument("--optimize", action="store_true",
-                   help="the UNC_LAMBDA search: not ported yet (ROADMAP A11)")
-    p.add_argument("--search", choices=["tpe", "grid"], default="tpe")
+                   help="search VAL.UNC_LAMBDA for the best mean ALC over "
+                        "the train videos (Run_active_learning.py:175-209)")
+    p.add_argument("--search", choices=["tpe", "grid"], default="tpe",
+                   help="--optimize sampler: TPE (the reference's intended "
+                        "default) or grid (its shipped single-point "
+                        "GridSampler path, widened)")
     p.add_argument("--n_trials", type=int, default=30)
     p.add_argument("--PCIT", action="store_true")
     p.add_argument("--fixed_lambda", action="store_true")
@@ -266,18 +273,76 @@ def save_result(cfg, opt, result):
     return path
 
 
+def run_study(cfg, opt, video_list, n_trials=None):
+    """The search over VAL.UNC_LAMBDA that maximises the mean ALC of AP .95
+    with annotations (Run_active_learning.py:175-209): QUERY_RATIO
+    [0.05, 0.1, 0.2, 0.3, 0.4, 1] (:201), each trial one do_al per video.
+    --search tpe: the TPE study that the reference's commented default
+    sampler implies (suggest_float 0.001..100, log scale, --n_trials);
+    --search grid: six values from 0.001 to 100 (the reference's shipped
+    GridSampler holds one).  `n_trials` overrides the trial count.
+    Returns the study."""
+    from ..al.al_metric import compute_alc
+    from ..al.optuna_lite import GridSampler, TPESampler, create_study
+
+    cfg.VAL.QUERY_RATIO = [0.05, 0.1, 0.2, 0.3, 0.4, 1]
+
+    def objective(trial):
+        cfg.VAL.UNC_LAMBDA = trial.suggest_float("unc_lambda", 0.001, 100,
+                                                 log=True)
+        alcs = []
+        for video in video_list:
+            opt.video_id = video
+            result = do_al(cfg, opt)
+            ap95 = np.array([r["AP .95"] for r in result[2]]) * 100
+            alcs.append(compute_alc(result[0], ap95))
+        alc = float(np.mean(alcs))
+        print(f"trial {trial.number}: unc_lambda="
+              f"{cfg.VAL.UNC_LAMBDA:.4g} ALC={alc:.4f}", flush=True)
+        return alc
+
+    if getattr(opt, "search", "tpe") == "grid":
+        sampler = GridSampler(
+            {"unc_lambda": [0.001, 0.01, 0.1, 1.0, 10.0, 100.0]})
+        count = 6
+    else:
+        sampler = TPESampler(seed=getattr(opt, "seed", None))
+        count = getattr(opt, "n_trials", 30)
+    study = create_study(direction="maximize", sampler=sampler)
+    study.optimize(objective, n_trials=count if n_trials is None
+                   else n_trials)
+    print(f"Best ALC: {study.best_value} Best params: {study.best_params}")
+    return study
+
+
+def optimize_alc(cfg, opt, video_list):
+    """run_study, then the two figures the reference writes
+    (Run_active_learning.py:205-209; matplotlib)."""
+    study = run_study(cfg, opt, video_list)
+    study.plot_history(os.path.join(opt.work_dir, "optuna_history.png"))
+    study.plot_slice(os.path.join(opt.work_dir, "optuna_slice.png"))
+    return study
+
+
 def main(argv=None):
     from ..config import update_config
     opt = parse_args(argv)
-    if opt.optimize:
-        raise NotImplementedError(
-            "--optimize (the UNC_LAMBDA search, optuna_lite) is not ported "
-            "yet (ROADMAP A11)")
     opt = setup_opt(opt)
     cfg = update_config(opt.cfg)
     opt = set_dir(cfg, opt)
     if opt.synthetic:
         cfg = prepare_synthetic(cfg, opt)
+    if opt.optimize:
+        # the reference reads configs/posetrack21/trainval_video_list.txt
+        # (Run_active_learning.py:249)
+        list_path = "configs/posetrack21/trainval_video_list.txt"
+        if os.path.exists(list_path) and not opt.synthetic:
+            with open(list_path) as f:
+                videos = [v for v in f.read().splitlines() if v]
+        else:
+            videos = [opt.video_id]
+        optimize_alc(cfg, opt, videos)
+        return
     if "," in opt.video_id:
         videos = [v for v in opt.video_id.split(",") if v]
         base_dir = opt.work_dir

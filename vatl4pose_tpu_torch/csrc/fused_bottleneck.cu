@@ -41,16 +41,18 @@
 //     second buffer, and sum a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi, for
 //     each k-step (8 channels) into a fresh accumulator, which an f32 FADD
 //     (round to nearest) then adds to the running sum ("promotion").  The
-//     tensor core aligns a wgmma's terms to the largest and truncates the
-//     rest; summed into one accumulator over all of K (up to 4608) that
-//     cut every product to the running sum's last bit, and on trained
-//     weights K1 sat 5x further from an f64 forward than cuDNN's f32.
-//     Promoted a k-step, each wgmma's sum is aligned to its own products:
-//     as close to f64 as cuDNN on trained weights, 6x further on sums that
-//     cancel to a few percent (the truncation's bias remains; ROADMAP C1).
-//     The k-step's wait serialises its three wgmmas: about 12% slower than
-//     promotion a k-block.  scripts/k1_f32_precision.py builds the other
-//     schemes it was chosen from.
+//     tensor core rounds each wgmma's sum toward zero (negating the
+//     products negates the result bit for bit).  Summed into one
+//     accumulator over all of K (up to 4608), that cut every product to
+//     the running sum's last bit, and on trained weights K1 sat 5x further
+//     from an f64 forward than cuDNN's f32.  Promoted a k-step, each part
+//     still comes out 0 to 1 ulp short, half an ulp on average, and on sums
+//     that cancel to a few percent those biases added up to 6x cuDNN's
+//     distance.  So each part's last mantissa bit is set before the FADD:
+//     that adds one ulp to half of the parts and evens the bias out (0.6x
+//     cuDNN's distance there, ROADMAP C1).  The k-step's wait serialises
+//     its three wgmmas.  scripts/k1_f32_precision.py builds the other
+//     schemes it was chosen from (bf16x6, XLA's "highest", among them).
 //   - Epilogue: acc*s + b in f32 is staged in shared memory (the ring's
 //     memory, free by then), then each thread takes 16 bytes of a row: adds
 //     the residual, ReLU, rounds (__float2bfloat16_rn for bf16) and stores
@@ -353,6 +355,13 @@ __device__ __forceinline__ float tf32_rna(float x) {
   return __uint_as_float(r);
 }
 
+// a promoted part with its last mantissa bit set: the tensor core's sum
+// rounded toward zero is short by half an ulp on average, and setting the
+// bit adds one ulp to half of the parts
+__device__ __forceinline__ float debias(float p) {
+  return __int_as_float(__float_as_int(p) | 1);
+}
+
 __device__ __forceinline__ void split(float v, float& hi, float& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - hi);
@@ -560,7 +569,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // promotion a k-step: the step's products into `part` (zeroed
         // by its first wgmma, scale-d 0), hi * hi last, so that the tensor
         // core aligns that sum to the products and not to a running sum;
-        // then `part` is added to acc
+        // then `part`, its bias evened out, is added to acc
         Mma<T, BN>::run(part, dal, db, 0);
         Mma<T, BN>::run(part, da, dbl);
         Mma<T, BN>::run(part, da, db);
@@ -568,7 +577,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_wait_all();
         fence_operands(part);
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+        for (int i = 0; i < BN / 2; ++i)
+          acc[i] = __fadd_rn(acc[i], debias(part[i]));
         fence_operands(acc);
         wgmma_fence();
       }

@@ -1,5 +1,7 @@
-"""Models: SimplePose on a ResNet backbone and the WholeBodyAE."""
+"""Models: SimplePose on a ResNet backbone, the WholeBodyAE and the
+VL4Pose AuxNet."""
 
+from .auxnet import COCO_LINKS, AuxNet
 from .builder import build_sppe, build_wholebody_ae
 from .convert import state_dict_from_flax
 from .resnet import RESNET_SPECS, BasicBlock, Bottleneck, ResNet

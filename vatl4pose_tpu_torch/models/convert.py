@@ -1,7 +1,8 @@
 """Weights carried across: the JAX package's Flax variable tree →
 this port's state_dict.
 
-`state_dict_from_flax(variables, arch)` takes {"params", "batch_stats"}
+`state_dict_from_flax(variables, arch)` (arch "SimplePose", "WholeBodyAE"
+or "auxnet") takes {"params", "batch_stats"}
 as nested mappings of numpy arrays (a Flax tree passed through
 np.asarray) and returns {name: tensor} in the reference torch layout,
 which `load_state_dict(strict=True)` takes as it is.  Layout rules (the
@@ -51,7 +52,12 @@ def _wholebody_ae_name(names: List[str]) -> str:
     return f"{side}.{int(names[0][3:]) * 2}"
 
 
-_NAMES = {"SimplePose": _simplepose_name, "WholeBodyAE": _wholebody_ae_name}
+def _auxnet_name(names: List[str]) -> str:
+    return ".".join(names)                            # proj, down0, fc0...
+
+
+_NAMES = {"SimplePose": _simplepose_name, "WholeBodyAE": _wholebody_ae_name,
+          "auxnet": _auxnet_name}
 
 
 def _leaves(tree, prefix=()):

@@ -34,11 +34,21 @@ class SimplePose(nn.Module):
         self.final_layer = nn.Conv2d(deconv_dim[2], num_joints, 1)
         self.to(resolve_device(device))
 
+    def backbone(self, x):
+        """x: (N, 3, H, W) -> the stride-32 feature (N, 2048, H/32, W/32),
+        channels-last; with fused_eval the bottleneck tails run through
+        the chain kernel."""
+        return self.preact(x.contiguous(memory_format=torch.channels_last))
+
+    def head(self, feat):
+        """The backbone feature -> heatmaps (N, K, H/4, W/4)."""
+        return self.final_layer(self.deconv_layers(feat))
+
     def forward(self, x, return_embedding: bool = False):
         """x: (N, 3, H, W).  Returns heatmaps (N, K, H/4, W/4) and, when
         asked, the GAP embedding of the same backbone pass (N, 2048)."""
-        feat = self.preact(x.contiguous(memory_format=torch.channels_last))
-        hm = self.final_layer(self.deconv_layers(feat))
+        feat = self.backbone(x)
+        hm = self.head(feat)
         if return_embedding:
             return hm, feat.mean(dim=(2, 3))
         return hm

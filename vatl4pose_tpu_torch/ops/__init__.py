@@ -8,8 +8,9 @@ from .heatmap import (crop_to_image, gaussian_target, get_max_pred,
 from .hybrid import ANGLE_TRIANGLES_17, compute_hybrid
 from .oks import (COCO_SIGMAS, COCO_VARS, JRDB_SIGMAS, JRDB_VARS, compute_oks,
                   oks_matrix)
-from .peaks import localpeak_mean, max_filter2d
-from .temporal import temporal_neighbor_weights, thc_scores
+from .peaks import (compute_entropy, compute_margin, compute_mpe,
+                    localpeak_mean, max_filter2d, peak_local_max_topk)
+from .temporal import temporal_neighbor_weights, thc_scores, tpc_scores
 from .warp import (RGB_MEAN, crop_batch, crop_geometry, normalize_crops,
                    warp_affine_bilinear, warp_affine_bilinear_batch,
                    warp_axis_aligned_batch)

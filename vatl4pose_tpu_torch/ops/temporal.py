@@ -1,5 +1,5 @@
-"""Temporal Heatmap Continuity (counterpart of vatl4pose_tpu/ops/
-temporal.py: `thc_scores`, `temporal_neighbor_weights`).
+"""Temporal continuity scorers THC and TPC (counterpart of vatl4pose_tpu/
+ops/temporal.py: `thc_scores`, `tpc_scores`, `temporal_neighbor_weights`).
 
 Every heatmap is computed once; a sample's neighbours are the rows ±1 of
 the track-sorted sample axis.  The roll wraps the axis, and the
@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["thc_scores", "temporal_neighbor_weights"]
+from .heatmap import crop_to_image
+
+__all__ = ["thc_scores", "tpc_scores", "temporal_neighbor_weights"]
 
 
 def temporal_neighbor_weights(is_prev, is_next):
@@ -42,3 +44,26 @@ def thc_scores(hms, is_prev, is_next, norm_type: str = "L1"):
         raise ValueError(norm_type)
     w_prev, w_next = temporal_neighbor_weights(is_prev, is_next)
     return w_prev * d_prev + w_next * d_next
+
+
+def tpc_scores(hm_coords, coords, bbox_crop_xyxy, is_prev, is_next, hm_wh):
+    """Temporal Pose Continuity (ActiveLearning.py:333-344, 736-745).
+
+    hm_coords: (N, K, 2) heatmap-space decodes of the pass (argmax and the
+    ±0.25 shift, which depend on the map alone); coords: (N, K, 2) the same
+    in image space; bbox_crop_xyxy: (N, 4); hm_wh: (W, H).  The reference
+    decodes the neighbour's map with the *current* sample's crop box, so
+    the neighbour's pose is its heatmap-space decode rolled by ±1 and
+    mapped through this sample's box: no second decode and no rolled copy
+    of the maps.  Per neighbour: the count of joints that move more than
+    0.01·sqrt(crop area); the doubling rule applies.  Returns (N,) f32."""
+    bb = bbox_crop_xyxy.to(torch.float32)
+    thresh = 0.01 * torch.sqrt((bb[:, 2] - bb[:, 0]) * (bb[:, 3] - bb[:, 1]))
+    prev_c = crop_to_image(torch.roll(hm_coords, 1, dims=0), bb, hm_wh)
+    next_c = crop_to_image(torch.roll(hm_coords, -1, dims=0), bb, hm_wh)
+    d_prev = torch.linalg.vector_norm(coords - prev_c, dim=-1)   # (N, K)
+    d_next = torch.linalg.vector_norm(coords - next_c, dim=-1)
+    c_prev = (d_prev > thresh[:, None]).sum(dim=-1).to(torch.float32)
+    c_next = (d_next > thresh[:, None]).sum(dim=-1).to(torch.float32)
+    w_prev, w_next = temporal_neighbor_weights(is_prev, is_next)
+    return w_prev * c_prev + w_next * c_next
