@@ -74,7 +74,20 @@ Phases, each of which fails the run on error, each with its wall time:
      MPE + K-Means and on VL4Pose + weighted (checked as phase 5's, and
      every round's query holds query_size distinct candidates); two grid
      trials of --optimize's UNC_LAMBDA study (run_study);
- 10. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+ 10. the other models: HRNet-W32 (configs/posetrack21/
+     al_hrnet_posetrack.yaml transcribed) and FastPose-R50 (the MODEL of
+     fastpose_posetrack21.yaml), seeded random weights, built through the
+     SPPE registry: a THC+WPU scoring pass of each over phase 3's 512
+     samples in f32 and in bf16 (K3 1, K2 1 and K1 4 for FastPose, 0 for
+     HRNet a pass), warm samples/s, a profile, the first 32 samples
+     against the CPU; FastPose's VL4Pose pass (K1 4) and fold_check; each
+     model's 15-step retrain (K3 once a step) and FastPose's train step on
+     the card against the CPU; the DUW loop on HRNet-W32 through the CLI's
+     functions, checked as phase 5's (K2 and K3 once a pass, K3 once a
+     step, K1 never); the JAX package's plain kernels in eager PyTorch
+     (deformable convolution v1/v2 with gradients, RoIAlign, deformable
+     PS-RoI pooling) on the card against the CPU, timed;
+ 11. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -763,7 +776,9 @@ def phase_rot_warp_kernel(video, seed):
 
 def randomize_(model, gen):
     """Seeded random weights, BN running stats included, so the fold
-    matters; He-scaled convs and small bn3 gains keep activations O(1)."""
+    matters; He-scaled convs and small gains on the BNs whose outputs are
+    summed (a bottleneck's bn3 and shortcut; HRNet's branch blocks' bn2
+    and its fusion layers) keep activations O(1)."""
     import torch
     with torch.no_grad():
         for name, m in model.named_modules():
@@ -778,8 +793,10 @@ def randomize_(model, gen):
                     m.bias.copy_(torch.randn(m.bias.shape, generator=gen)
                                  * 0.05)
             elif isinstance(m, torch.nn.BatchNorm2d):
-                lo, hi = (0.1, 0.3) if name.endswith(("bn3", "downsample.1")) \
-                    else (0.5, 1.0)
+                summed = name.endswith(("bn3", "downsample.1")) or (
+                    ".branches." in name and name.endswith("bn2")) \
+                    or ".fuse_layers." in name
+                lo, hi = (0.1, 0.3) if summed else (0.5, 1.0)
                 c = m.num_features
                 m.weight.copy_(torch.rand(c, generator=gen) * (hi - lo) + lo)
                 m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
@@ -936,10 +953,11 @@ def profile_call(fn, label, top=12, show=("rot_warp", "heatmap_postprocess")):
     return einsums, 1 - busy / wall_ms
 
 
-def make_retrainer(model, video, device=None, seed=166):
+def make_retrainer(model, video, device=None, seed=166,
+                   model_type="SimplePose"):
     from vatl4pose_tpu_torch.data import AugCfg
     from vatl4pose_tpu_torch.train import Retrainer
-    return Retrainer(model, RETRAIN, "SimplePose", input_size=INPUT_SIZE,
+    return Retrainer(model, RETRAIN, model_type, input_size=INPUT_SIZE,
                      hm_size=HM_SIZE, sigma=2.0, aug=AugCfg(**AUG),
                      joint_pairs=video.joint_pairs, seed=seed, device=device)
 
@@ -959,7 +977,7 @@ def train_batch(video, n, rng):
             np.ones(n, bool))
 
 
-def phase_step_check(video, seed, n=8):
+def phase_step_check(video, seed, n=8, model_cfg=None):
     """One train step on n samples from the same weights on the card (f32,
     TF32 off), with the same port on the CPU in f32, and on the CPU in f64
     as the exact step.  Tolerances: loss relative 1e-4 between card and
@@ -973,11 +991,15 @@ def phase_step_check(video, seed, n=8):
     one ulp) of the CPU's (AdamW's first step is lr mult sign(g), so a
     sign flip of a tiny gradient moves an element by up to that), and >=
     99.5% within 1e-6 + 1e-4|p| of the CPU's, or no fewer within it of the
-    f64 step than the CPU's f32 step has, less 0.5%."""
+    f64 step than the CPU's f32 step has, less 0.5%.  The model is phase
+    3's SimplePose-R50, or the estimator of `model_cfg` (a MODEL section)
+    with the same seeded random weights."""
     import numpy as np
     import torch
     from vatl4pose_tpu_torch.train import LR_GROUPS
-    model_cpu, _ = make_models(seed + 1)
+    model_type = "SimplePose" if model_cfg is None else model_cfg["TYPE"]
+    model_cpu = make_models(seed + 1)[0] if model_cfg is None \
+        else make_zoo_model(model_cfg, seed + 1)[0]
     runs = (("cpu", copy.deepcopy(model_cpu).double(),
              torch.from_numpy(video.frames)),
             ("cpu", model_cpu, torch.from_numpy(video.frames)),
@@ -987,7 +1009,8 @@ def phase_step_check(video, seed, n=8):
     for dev, model, frames in runs:
         key = "f64" if next(model.parameters()).dtype == torch.float64 \
             else dev
-        tr = make_retrainer(model.train(), video, device=dev)
+        tr = make_retrainer(model.train(), video, device=dev,
+                            model_type=model_type)
         t0 = time.perf_counter()
         loss[key] = tr.train_step(frames, *batch)[0].item()
         log(f"  step {key}: {time.perf_counter() - t0:.2f} s")
@@ -1019,7 +1042,7 @@ def phase_step_check(video, seed, n=8):
             ok = (a - b).abs() <= 1e-6 + 1e-4 * b.abs()
             close[pair] += ok.sum().item()
         total += p.numel()
-        lr_mult = RETRAIN["LR"] * LR_GROUPS["SimplePose"](k.split(".")[0])
+        lr_mult = RETRAIN["LR"] * LR_GROUPS[model_type](k.split(".")[0])
         d = (params["cuda"][k] - p).abs()
         worst_p = max(worst_p, (d / (2 * lr_mult + 2 * 1.2e-7 * p.abs()))
                       .max().item())
@@ -1027,7 +1050,7 @@ def phase_step_check(video, seed, n=8):
     params_ok = worst_p <= 1.0 and (
         share["cuda-cpu"] >= 0.995
         or share["cuda-f64"] >= share["cpu-f64"] - 0.005)
-    log(f"  GPU vs CPU step ({n} samples): loss {loss['cuda']:.7e} vs "
+    log(f"  GPU vs CPU step ({model_type}, {n} samples): loss {loss['cuda']:.7e} vs "
         f"{loss['cpu']:.7e} (f64 {loss['f64']:.7e}), rel err "
         f"{loss_err:.3e} (tolerance 1e-4)")
     log(f"  gradients, max rel Frobenius err over tensors: card-CPU "
@@ -1239,8 +1262,9 @@ def coreset_gaps(args, kw, picks, ref):
     return gaps
 
 
-def fold_check(model, video, n=16):
-    """The retrained model on the first n samples' scoring crops, in eval
+def fold_check(model, video, n=16, label="AL loop"):
+    """A SimplePose's or FastPose's weights (phase 5: the retrained ones)
+    on the first n samples' scoring crops, in eval
     mode, four ways: through K1; through K1's plain version (the same
     folded operands, f32 products on cuDNN); through the unfused cuDNN
     graph in f32; and, as the exact forward, through the unfused graph in
@@ -1278,8 +1302,7 @@ def fold_check(model, video, n=16):
                     else kernel
                 feat = m.preact(x)
                 out[key] = {"backbone": feat.double().cpu(),
-                            "heatmaps": m.final_layer(
-                                m.deconv_layers(feat)).double().cpu()}
+                            "heatmaps": m.head(feat).double().cpu()}
     finally:
         resnet_mod.fused_bottleneck_chain = kernel
         model.preact.fused_eval = True
@@ -1296,12 +1319,12 @@ def fold_check(model, video, n=16):
                                      for k in ("K1", "K1 plain", "unfused")}
         d["K1 / unfused"] = d["K1"] / d["unfused"]
         ok = ok and d["K1"] <= 2 * d["unfused"]
-        log(f"AL loop: retrained weights ({n} samples), {what} max|err| / "
+        log(f"{label}: ({n} samples), {what} max|err| / "
             f"max against the f64 forward: " + ", ".join(
                 f"{k} {v:.3e}" for k, v in d.items()) + " (bar: K1 at most "
             "2x unfused)")
     res["ok"] = ok
-    log(f"AL loop: the fold (K1's plain version vs unfused, backbone) "
+    log(f"{label}: the fold (K1's plain version vs unfused, backbone) "
         f"{res['fold']:.3e} (bar 1e-4); K1 vs unfused, heatmaps "
         f"{res['k1']:.3e}: {'ok' if res['ok'] else 'FAILED'}")
     return res
@@ -1312,7 +1335,7 @@ def write_weights(tmp, cfg, model, ae):
     AE.PRETRAINED_ROOT/Hybrid/WholeBodyAE_zdim4.pth, under tmp."""
     import os
     import torch
-    cfg.MODEL.PRETRAINED = os.path.join(tmp, "simplepose.pth")
+    cfg.MODEL.PRETRAINED = os.path.join(tmp, f"{cfg.MODEL.TYPE}.pth")
     torch.save(model.state_dict(), cfg.MODEL.PRETRAINED)
     cfg.AE.PRETRAINED_ROOT = os.path.join(tmp, "ae")
     os.makedirs(os.path.join(tmp, "ae", "Hybrid"), exist_ok=True)
@@ -1470,7 +1493,8 @@ def phase_al_loop(video, card, seed, speedup=False):
             raise AssertionError(f"{label}: " + "; ".join(failed))
         return res
 
-    fold = fold_check(calls.engine.model, video)
+    fold = fold_check(calls.engine.model, video,
+                      label="AL loop: retrained weights")
     if not fold["ok"]:
         failed.append(f"K1 or the fold against the unfused graph {fold}")
 
@@ -2197,6 +2221,309 @@ def phase_study(seed):
             "launches": counts}
 
 
+# phase 10: the other pose models.  configs/posetrack21/
+# al_hrnet_posetrack.yaml as the AL loop reads it, transcribed: AL_CFG
+# with its MODEL (HRNet-W32, the stages of hrnetw32_posetrack21.yaml:
+# 36-57) and AL_CFG's cut (RETRAIN.ALPHA 250 -> AL_ALPHA), plus VAL.VIS
+# false; and configs/posetrack21/fastpose_posetrack21.yaml's MODEL
+# (SE-ResNet-50, CONV_DIM 128 by default) for FastPose's passes
+HRNET_CFG = copy.deepcopy(AL_CFG)
+HRNET_CFG["MODEL"] = {
+    "TYPE": "PoseHighResolutionNet", "PRETRAINED": "", "TRY_LOAD": "",
+    "NUM_LAYERS": 50, "FINAL_CONV_KERNEL": 1, "PRETRAINED_LAYERS": ["*"],
+    **{f"STAGE{s}": {"NUM_MODULES": m, "NUM_BRANCHES": s - 1,
+                     "NUM_BLOCKS": [4] * (s - 1),
+                     "NUM_CHANNELS": [32, 64, 128, 256][:s - 1],
+                     "BLOCK": "BASIC", "FUSE_METHOD": "SUM"}
+       for s, m in ((2, 1), (3, 4), (4, 3))}}
+HRNET_CFG["VAL"]["VIS"] = False
+FASTPOSE_MODEL = {"TYPE": "FastPose", "PRETRAINED": "", "TRY_LOAD": "",
+                  "NUM_DECONV_FILTERS": [256, 256, 256], "NUM_LAYERS": 50}
+# (label, MODEL section, K1 launches a scoring pass)
+ZOO = (("HRNet-W32", HRNET_CFG["MODEL"], 0),
+       ("FastPose-R50", FASTPOSE_MODEL, 4))
+
+
+def make_zoo_model(model_cfg, seed):
+    """The estimator of a MODEL section at full width (17 joints,
+    fused_eval) through the builder, and a WholeBodyAE (z=4, 38 inputs),
+    seeded random weights (randomize_), on the CPU."""
+    import torch
+    from vatl4pose_tpu_torch.models import WholeBodyAE, build_sppe
+    gen = torch.Generator().manual_seed(seed)
+    model = randomize_(build_sppe(model_cfg, {"NUM_JOINTS": 17},
+                                  fused_eval=True, device="cpu"), gen)
+    ae = randomize_(WholeBodyAE(z_dim=4, input_dim=38, device="cpu"), gen)
+    return model, ae
+
+
+def phase_zoo_passes(video, seed):
+    """HRNet-W32 and FastPose-R50 (phase 3's video, 512 samples, 256x192,
+    seeded random weights): one THC+WPU scoring pass in f32 and one in
+    bf16, counters from 0 before each (K3 1, K2 1 and K1 4 for FastPose,
+    0 for HRNet, whose builder ignores fused_eval); warm samples/s
+    (median of 3) and a profile of one warm pass, which must run no
+    aten::einsum; the first 32 samples' heatmaps and embeddings against
+    the same port on the CPU (phase 3's bounds).  FastPose also: one
+    VL4Pose pass (one backbone pass a chunk through K1 feeds the head, the
+    AuxNet of the seeded default init and the embedding: K1 4, K2 1, K3 1)
+    and fold_check on its f32 pass (K1 at most twice cuDNN's f32 distance
+    from f64)."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from vatl4pose_tpu_torch.models import AuxNet
+    frame_idx, bboxes = video.args[1], video.args[2]
+    n = len(frame_idx)
+    out, failed = {}, []
+
+    def one_pass(engine, what, want):
+        reset_launch_counts()
+        res = engine.score(*video.args)
+        torch.cuda.synchronize()
+        counts = {k.__name__: k.launches for k in KERNELS}
+        log(f"{what}: launches {counts}")
+        if counts != want:
+            failed.append(f"{what}: launches {counts}, want {want}")
+        return res, counts
+
+    for label, mcfg, k1 in ZOO:
+        model, ae = make_zoo_model(mcfg, seed)
+        model_cpu, ae_cpu = copy.deepcopy(model), copy.deepcopy(ae)
+        model.cuda()
+        ae.cuda()
+        want = {"fused_bottleneck_chain": k1, "fused_postprocess": 1,
+                "rot_warp_crop": 1}
+        r, hms = {}, {}
+        for mode in ("f32", "bf16"):
+            engine = ScoringEngine(model, ScoringConfig(
+                uncertainty="THC+WPU", bf16=mode == "bf16"), ae_model=ae,
+                chunk=BATCH)
+            res, counts = one_pass(engine, f"{label} scoring {mode}", want)
+            check_outputs(res, n)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                engine.score(*video.args, keep_heatmaps=False)
+                times.append(time.perf_counter() - t0)
+            rate = n / statistics.median(times)
+            log(f"{label} scoring {mode}: warm {rate:.1f} samples/s ({n} "
+                f"samples, median of 3: {statistics.median(times):.3f} s)")
+            einsums, idle = profile_call(
+                lambda: engine.score(*video.args, keep_heatmaps=False),
+                f"{label} scoring pass {mode}")
+            if einsums:
+                failed.append(f"{label} {mode}: the pass ran an einsum")
+            r[mode] = {"samples_per_s": rate, "launches": counts,
+                       "idle_share": idle}
+            hms[mode] = (res["heatmaps"][:32].float().cpu(),
+                         torch.as_tensor(res["embeddings"][:32]))
+            del res
+        ref = ScoringEngine(model_cpu, ScoringConfig(uncertainty="THC+WPU"),
+                            ae_model=ae_cpu, chunk=32, device="cpu")
+        hm_cpu, emb_cpu, _, _ = ref.forward_video(video.frames,
+                                                  frame_idx[:32], bboxes[:32])
+        for mode, tol in (("f32", 1e-3), ("bf16", 0.25)):
+            hm, emb = hms[mode]
+            e_hm = ((hm - hm_cpu).abs().max() / hm_cpu.abs().max()).item()
+            e_emb = ((emb - emb_cpu).abs().max()
+                     / emb_cpu.abs().max()).item()
+            log(f"{label} {mode} vs CPU (32 samples): heatmaps max|err|/max "
+                f"{e_hm:.3e}, embeddings {e_emb:.3e} (tolerance {tol})")
+            r[mode].update(vs_cpu_heatmaps=e_hm, vs_cpu_embeddings=e_emb)
+            if not (e_hm <= tol and e_emb <= tol):
+                failed.append(f"{label} {mode}: the card disagrees with the "
+                              "CPU")
+        del ref, model_cpu, ae_cpu
+        if k1:
+            engine = ScoringEngine(model, ScoringConfig(uncertainty="VL4Pose"),
+                                   aux_model=AuxNet(), chunk=BATCH)
+            t0 = time.perf_counter()
+            res, counts = one_pass(engine, f"{label} VL4Pose", want)
+            wall = time.perf_counter() - t0
+            if not np.isfinite(res["unc"]).all() or res["unc"].shape != (n,):
+                failed.append(f"{label} VL4Pose: unc not finite")
+            r["vl4pose"] = {"pass_s": wall, "launches": counts}
+            fold = fold_check(model, video, label=f"{label} seeded weights")
+            r["fold_check"] = fold
+            if not fold["ok"]:
+                failed.append(f"{label}: K1 or the fold {fold}")
+            del res
+        out[label] = r
+        del model, ae
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("other models: " + "; ".join(failed))
+    return out
+
+
+def phase_zoo_retrain(video, seed):
+    """Each model's retrain (phase 4's: RETRAIN of al_simple_posetrack.
+    yaml, batch 120, AdamW with the model's LR groups, 3 epochs = 15
+    steps, every crop through K3, counters from 0 before it): ms a step
+    (median of epochs 2-3); then FastPose's train step on the card
+    against the CPU (phase_step_check)."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+    d = video.data
+    n = len(d)
+    steps_per_epoch = -(-n // RETRAIN["BATCH_SIZE"])
+    out = {}
+    for label, mcfg, _ in ZOO:
+        model = make_zoo_model(mcfg, seed)[0].cuda()
+        tr = make_retrainer(model, video, model_type=mcfg["TYPE"])
+        walls, curve = [], []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for _ in range(RETRAIN_EPOCHS):
+            t0 = time.perf_counter()
+            curve.append(tr.retrain(d, video.frames_dev, np.arange(n), 1,
+                                    (d.width, d.height)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = {k.__name__: k.launches for k in KERNELS}
+        steps = RETRAIN_EPOCHS * steps_per_epoch
+        ms = statistics.median(walls[1:]) / steps_per_epoch * 1e3
+        log(f"{label} retrain: {steps} steps, {ms:.1f} ms/step warm, loss "
+            f"and acc by epoch {curve}, launches {counts}")
+        want = {"fused_bottleneck_chain": 0, "fused_postprocess": 0,
+                "rot_warp_crop": steps}
+        if counts != want or not np.isfinite(curve).all():
+            raise AssertionError(f"{label} retrain: launches {counts}, want "
+                                 f"{want}; curve {curve}")
+        out[label] = {"ms_per_step": ms, "steps": steps, "launches": counts}
+        del model, tr
+        torch.cuda.empty_cache()
+    phase_step_check(video, seed, model_cfg=FASTPOSE_MODEL)
+    return out
+
+
+def phase_hrnet_loop(video, card, seed):
+    """The port's AL loop on HRNet-W32 through its CLI's functions, as
+    phase 5 drives SimplePose: DUW (THC+WPU, Influence, Coreset,
+    continual, seedfix, f32) on HRNET_CFG over phase 3's video, from
+    seeded weights written as a reference-layout .pth and a seeded AE
+    .pth; 9 rounds and the final evaluation.  Checked as phase 5's loop
+    (fields, percentages to 100, every sample queried once, a
+    cycle_times.jsonl line a cycle), result.json's model, and the
+    counters (reset before do_al): K2 once and K3 once a scoring pass, K3
+    once an optimizer step, all f32, and K1 never."""
+    from vatl4pose_tpu_torch.config import Cfg
+    label = "AL loop HRNet-W32"
+    n = len(video.data)
+    rounds = len(HRNET_CFG["VAL"]["QUERY_RATIO"])
+    with tempfile.TemporaryDirectory() as tmp:
+        model, ae = make_zoo_model(HRNET_CFG["MODEL"], seed)
+        cfg = Cfg(copy.deepcopy(HRNET_CFG))
+        write_weights(tmp, cfg, model, ae)
+        del model, ae
+        argv = [
+            "--cfg", "configs/posetrack21/al_hrnet_posetrack.yaml",
+            "--video_id", "000001", "--uncertainty", "THC+WPU",
+            "--representativeness", "Influence", "--filter", "Coreset",
+            "--continual", "--seedfix", "--synthetic", "--memo",
+            "chip_smoke", "--synth_seed", str(seed),
+            "--synth_frames", str(VIDEO["num_frames"]),
+            "--synth_persons", str(VIDEO["num_persons"]),
+            "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+        rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(cfg, argv,
+                                                                   tmp)
+    phase_sums, table, failed = loop_report(label, rj, cycles, counts,
+                                            calls, loop_s, n, rounds, card)
+    passes, steps = calls.score_calls, calls.train_steps
+    want = {"fused_bottleneck_chain": 0, "fused_postprocess": passes,
+            "rot_warp_crop": passes + steps}
+    want_dtype = {"fused_bottleneck_chain": {},
+                  "rot_warp_crop": {"f32": passes + steps}}
+    if passes != rounds + 1 or steps == 0 or counts != want \
+            or by_dtype != want_dtype:
+        failed.append(f"launches {counts} {by_dtype}, want {want} "
+                      f"{want_dtype} for {passes} passes and {steps} steps")
+    if rj["model"] != "PoseHighResolutionNet":
+        failed.append(f"result.json model {rj['model']}")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
+            "launches": counts, "phase_s": phase_sums, "rounds": table}
+
+
+def phase_plain_kernels(seed):
+    """The JAX package's plain kernels in eager PyTorch (no hand kernel):
+    deform_conv2d v1 and v2 (forward and the gradients of a weighted sum)
+    and DeformConv2d at a FastPose DCN stage-2 block's shape, roi_align,
+    deform_roi_pool with and without offsets, at the CPU tests' shapes
+    (tests/test_torch_plain_kernels.py), on the card against the CPU on
+    the same inputs, values within 1e-5 and gradients within 1e-4 of the
+    CPU's max magnitude (f32 sums in another order, the gathers' backward
+    by atomics; no TF32); each forward's CUDA-event time."""
+    import torch
+    from vatl4pose_tpu_torch.kernels import (deform_conv2d, deform_roi_pool,
+                                             roi_align)
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(shape, generator=gen)
+        return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+    rois = torch.tensor([[0, 1.2, 0.7, 9.5, 7.3], [1, -3.0, -2.5, 4.0, 3.0],
+                         [1, 6.0, 5.0, 14.0, 12.5], [0, 4.2, 3.1, 4.6, 3.3],
+                         [1, 20.0, 15.0, 24.0, 19.0]])
+    cases = {}
+    for name, (n, cin, h, w, cout, stride, groups, modulated) in {
+            "deform_conv2d_v1": (2, 4, 7, 6, 5, 1, 1, False),
+            "deform_conv2d_v2_g2_s2": (2, 4, 7, 6, 5, 2, 2, True),
+            "deform_conv2d_fastpose_stage2": (8, 128, 32, 24, 128, 1, 1,
+                                              False)}.items():
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        args = [rnd(n, cin, h, w), rnd(n, 18 * groups, ho, wo, lo=-3, hi=3),
+                rnd(cout, cin, 3, 3) * (2 / (9 * cin)) ** 0.5]
+        if modulated:                                  # the masks, last
+            args.append(rnd(n, 9 * groups, ho, wo, lo=0.05, hi=0.95))
+
+        def dcn(x, off, k, *mask, s=stride, g=groups):
+            return deform_conv2d(x, off, k, s, 1, *(mask or (None,)), g)
+        cases[name] = (dcn, args, rnd(n, cout, ho, wo))
+    cases["roi_align"] = (lambda f: roi_align(f, rois, (4, 3), 1.0, 2),
+                          [rnd(2, 6, 9, 11)], None)
+    for no_trans in (True, False):
+        cases[f"deform_roi_pool_{'plain' if no_trans else 'trans'}"] = (
+            lambda d, o, nt=no_trans: deform_roi_pool(
+                d, rois, o, 0.8, 3, 2, nt, 2, 2, 0.2),
+            [rnd(2, 8, 10, 12), rnd(5, 2, 3, 3)], None)
+    out, failed = {}, []
+    for name, (fn, args, grad_w) in cases.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            a = [t.detach().to(dev).requires_grad_(grad_w is not None)
+                 for t in args]
+            y = fn(*a)
+            grads = []
+            if grad_w is not None:
+                (y * grad_w.to(dev)).sum().backward()
+                grads = [t.grad.cpu() for t in a]
+            res[dev] = [y.detach().cpu()] + grads
+        errs = [((c - g).abs().max() / g.abs().max()).item()
+                for g, c in zip(res["cpu"], res["cuda"])]
+        with torch.no_grad():
+            a = [t.cuda() for t in args]
+            ms = cuda_ms(lambda: fn(*a), reps=20)
+        log(f"plain kernel {name}: card {ms:.4f} ms at "
+            f"{[tuple(t.shape) for t in args]}; card vs CPU max|err|/max "
+            f"{errs[0]:.3e}" + (f", gradients {max(errs[1:]):.3e}"
+                                 if len(errs) > 1 else ""))
+        if errs[0] > 1e-5 or max(errs[1:], default=0.0) > 1e-4:
+            failed.append(f"{name}: {errs}")
+        out[name] = {"ms": ms, "vs_cpu": max(errs),
+                     "shapes": [list(t.shape) for t in args]}
+    if failed:
+        raise AssertionError("plain kernels, card vs CPU: "
+                             + "; ".join(failed))
+    return out
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -2274,8 +2601,21 @@ def main():
     other = {"scoring": phase_other_scoring(video, seed),
              "loops": phase_other_loops(video, card, seed),
              "study": phase_study(seed)}
+    phase("phase 10: the other models and the plain kernels")
+    zoo = {"passes": phase_zoo_passes(video, seed),
+           "retrain": phase_zoo_retrain(video, seed),
+           "hrnet_loop": phase_hrnet_loop(video, card, seed),
+           "plain_kernels": phase_plain_kernels(seed)}
+    hr = zoo["hrnet_loop"]
+    log("AL loop HRNet-W32 wall and split, s: " + json.dumps(
+        dict(hr["phase_s"], wall=hr["loop_s"])) + "; scoring samples/s "
+        + json.dumps({m: {p: r["samples_per_s"] for p, r in v.items()
+                          if p in ("f32", "bf16")}
+                      for m, v in zoo["passes"].items()})
+        + "; retrain ms/step " + json.dumps(
+            {m: r["ms_per_step"] for m, r in zoo["retrain"].items()}))
     del video
-    phase("phase 10: result")
+    phase("phase 11: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
@@ -2289,6 +2629,18 @@ def main():
     other_n.update({f"al_loop_{key}": r["launches"]
                     for key, r in other["loops"].items()})
     other_n["optimize_study"] = other["study"]["launches"]
+    # phase 10's paths: each model's passes (the bf16 ones apart),
+    # FastPose's VL4Pose pass, the retrains and the HRNet loop
+    zoo_bf16 = {}
+    for label, r in zoo["passes"].items():
+        key = label.split("-")[0].lower()
+        other_n[f"{key}_scoring_f32"] = r["f32"]["launches"]
+        zoo_bf16[f"{key}_scoring_bf16"] = r["bf16"]["launches"]
+        if "vl4pose" in r:
+            other_n[f"{key}_scoring_vl4pose"] = r["vl4pose"]["launches"]
+    for label, r in zoo["retrain"].items():
+        other_n[f"{label.split('-')[0].lower()}_retrain"] = r["launches"]
+    other_n["al_loop_hrnet"] = zoo["hrnet_loop"]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
@@ -2299,7 +2651,9 @@ def main():
                    "bf16": {"scoring_bf16":
                             counts["bf16"]["fused_bottleneck_chain"],
                             "al_loop_speedup":
-                            bf_n["fused_bottleneck_chain"]}}
+                            bf_n["fused_bottleneck_chain"],
+                            **{k: v["fused_bottleneck_chain"]
+                               for k, v in zoo_bf16.items()}}}
     kernels = []
     for mode in ("f32", "bf16"):
         kernels.append({
@@ -2318,7 +2672,8 @@ def main():
                    "al_loop_speedup": bf_n["fused_postprocess"],
                    "al_loop_streaming": st_n["fused_postprocess"],
                    "c1_loop": c1_n["fused_postprocess"],
-                   **{k: v["fused_postprocess"] for k, v in other_n.items()}}
+                   **{k: v["fused_postprocess"]
+                      for k, v in {**other_n, **zoo_bf16}.items()}}
     kernels.append({
         "name": "heatmap_postprocess_f32", "route": "cuda",
         "source": "vatl4pose_tpu_torch/csrc/postprocess.cu",
@@ -2342,7 +2697,9 @@ def main():
                                  for k, v in other_n.items()}},
                    "u8_bf16": {"scoring_bf16":
                                counts["bf16"]["rot_warp_crop"],
-                               "al_loop_speedup": bf_n["rot_warp_crop"]}}
+                               "al_loop_speedup": bf_n["rot_warp_crop"],
+                               **{k: v["rot_warp_crop"]
+                                  for k, v in zoo_bf16.items()}}}
     for inst, shape in (("u8_f32", "retrain_f32"),
                         ("u8_bf16", "scoring_bf16")):
         r = k3[shape]
@@ -2358,7 +2715,7 @@ def main():
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
                     "al_loop": al, "al_loop_speedup": al_bf16,
                     "al_loop_streaming": stream, "c1_loop": c1,
-                    "other_strategies": other,
+                    "other_strategies": other, "other_models": zoo,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],

@@ -13,7 +13,9 @@ from vatl4pose_tpu.models import SimplePose as FlaxSimplePose
 from vatl4pose_tpu.models import WholeBodyAE as FlaxWholeBodyAE
 from vatl4pose_tpu.models.convert_torch import export_state_dict
 from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
-from vatl4pose_tpu_torch.models import (SimplePose, WholeBodyAE,
+from vatl4pose_tpu_torch.models import (FastPose, PoseHighResolutionNet,
+                                        ShuffleResnet, SimplePose,
+                                        WholeBodyAE, build_sppe,
                                         state_dict_from_flax)
 
 torch.set_num_threads(1)
@@ -148,6 +150,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         SimplePose(**NARROW)
+    for model in (FastPose, PoseHighResolutionNet, ShuffleResnet):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model()
+    for t in ("SimplePose", "FastPose", "PoseHighResolutionNet"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_sppe({"TYPE": t}, {"NUM_JOINTS": 17})
     with pytest.raises(RuntimeError, match="CUDA"):
         WholeBodyAE()
     ae = WholeBodyAE(device="cpu")

@@ -8,12 +8,14 @@ retrain-set policy, three stopping criteria, early-stop curve padding, and
 the reference's 20-field result.
 
 The port's own design:
-  - One model.  A single SimplePose nn.Module with `fused_eval=True` is
-    trained in place by the Retrainer (train mode: the exact module graph
-    on cuDNN) and served by the ScoringEngine (eval mode: the bottleneck
-    tails through the chain kernel K1, BN folded from the current weights
-    on every forward).  The JAX package serves the unfused graph in parity
-    mode and the fused one only under --speedup.
+  - One model.  A single estimator nn.Module (MODEL.TYPE through the
+    SPPE registry: SimplePose, FastPose or PoseHighResolutionNet), built
+    with `fused_eval=True`, is trained in place by the Retrainer (train
+    mode: the exact module graph on cuDNN) and served by the
+    ScoringEngine (eval mode: SimplePose's and FastPose's bottleneck tails
+    through the chain kernel K1, BN folded from the current weights on
+    every forward; HRNet has no K1 path).  The JAX package serves the
+    unfused graph in parity mode and the fused one only under --speedup.
   - --speedup, as in the JAX package: bf16 serving (bf16 weights and
     crops, the bottleneck tails through K1 in bf16) and bf16 retraining
     (bf16 copies of the f32 master weights through the forward and
@@ -30,7 +32,8 @@ The port's own design:
     is given and missing raises.  --from_scratch (and an empty
     AE.PRETRAINED_ROOT) takes PyTorch's init under torch.manual_seed(seed),
     which is not Flax's init: such runs do not match the JAX package's.
-  - VL4Pose: an AuxNet on the estimator's stride-32 feature, initialised
+  - VL4Pose (SimplePose or FastPose: an estimator split into backbone
+    and head): an AuxNet on the estimator's stride-32 feature, initialised
     from a generator seeded 318 (not Flax's PRNGKey(318) bits); one
     backbone pass feeds the head, the AuxNet and the embedding.
   - Not ported yet, and so refused: --data_parallel (A14) and
@@ -243,9 +246,9 @@ class ActiveLearning:
         # ---- VL4Pose auxiliary net ------------------------------------------
         self.aux = None
         if "VL4Pose" in self.strategy:
-            if cfg.MODEL.TYPE != "SimplePose":
+            if cfg.MODEL.TYPE not in ("SimplePose", "FastPose"):
                 raise ValueError("VL4Pose needs a backbone/head-split "
-                                 "estimator (SimplePose)")
+                                 "estimator (SimplePose or FastPose)")
             depth = cfg.MODEL.get("NUM_LAYERS", 50)
             self.aux = AuxNet(in_channels=2048 if depth >= 50 else 512,
                               device=self.device)

@@ -61,8 +61,10 @@ class ScoringConfig:
 class ScoringEngine:
     """Runs the two-stage scoring pipeline for one model on one device.
 
-    `model` is a SimplePose (its own weights; `fused_eval=True` routes the
-    backbone's bottleneck tails through the chain kernel), `ae_model` the
+    `model` is the pose estimator (its own weights; on SimplePose and
+    FastPose `fused_eval=True` routes the backbone's bottleneck tails
+    through the chain kernel; VL4Pose needs their backbone/head split),
+    `ae_model` the
     WholeBodyAE that the WPU branches need, `aux_model` the AuxNet that
     VL4Pose needs (it runs in f32 on the backbone feature, also under
     bf16 serving, as the JAX package's f32 aux variables do).  device=None

@@ -19,6 +19,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..registry import DATASET
 from .coco_json import CocoJson
 
 __all__ = ["VideoPoseData", "VideoPoseDataset", "Posetrack21", "JRDB2022",
@@ -211,21 +212,22 @@ class VideoPoseDataset:
         return len(self.data)
 
 
+@DATASET.register_module
 class Posetrack21(VideoPoseDataset):
     joint_pairs = POSETRACK_JOINT_PAIRS
     track_suffix_digits = 2
 
 
+@DATASET.register_module
 class JRDB2022(VideoPoseDataset):
     joint_pairs = JRDB_JOINT_PAIRS
     track_suffix_digits = 3
 
 
-_DATASETS = {"Posetrack21": Posetrack21, "JRDB2022": JRDB2022}
-
-
 def build_dataset(dataset_cfg: dict, check_files: bool = True):
-    """`dataset_cfg` is a plain dict with TYPE, ROOT and ANN."""
-    cls = _DATASETS[dataset_cfg["TYPE"]]
+    """`dataset_cfg` is a plain dict with TYPE, ROOT and ANN; TYPE is
+    resolved through the DATASET registry (an unknown one raises its
+    KeyError)."""
+    cls = DATASET.get(dataset_cfg["TYPE"])
     return cls(root=dataset_cfg["ROOT"], ann_file=dataset_cfg["ANN"],
                check_files=check_files)

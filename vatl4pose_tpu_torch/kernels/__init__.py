@@ -1,11 +1,19 @@
 """Hand-written CUDA kernels (sources in ../csrc) with their plain
 PyTorch versions.  Each wrapper counts its kernel launches in its
 `launches` attribute, K1 and K3 also by dtype (`launches_by_dtype`: the
-stream's, the crops')."""
+stream's, the crops').
 
+The JAX package's plain (non-Pallas) kernels are eager PyTorch here,
+with no hand kernel and no launch count: deformable convolution
+(`deform_conv2d`, `DeformConv2d`), deformable PS-RoI pooling
+(`deform_roi_pool`) and RoIAlign (`roi_align`)."""
+
+from .deform_conv import DeformConv2d, deform_conv2d
+from .deform_pool import deform_roi_pool
 from .fused_bottleneck import (bottleneck_chain_reference, fold_bn,
                                fused_bottleneck_chain)
 from .postprocess import fused_postprocess, postprocess_reference
+from .roi_align import roi_align
 from .rot_warp import rot_warp_crop, rot_warp_crop_reference
 
 KERNELS = (fused_bottleneck_chain, fused_postprocess, rot_warp_crop)

@@ -1,16 +1,17 @@
 """Weights carried across: the JAX package's Flax variable tree →
 this port's state_dict.
 
-`state_dict_from_flax(variables, arch)` (arch "SimplePose", "WholeBodyAE"
-or "auxnet") takes {"params", "batch_stats"}
+`state_dict_from_flax(variables, arch)` (arch "SimplePose", "FastPose",
+"PoseHighResolutionNet", "ShuffleResnet", "WholeBodyAE" or "auxnet")
+takes {"params", "batch_stats"}
 as nested mappings of numpy arrays (a Flax tree passed through
 np.asarray) and returns {name: tensor} in the reference torch layout,
 which `load_state_dict(strict=True)` takes as it is.  Layout rules (the
 port's own copy of the inverse in vatl4pose_tpu/models/convert_torch.py):
 
-  conv kernel    HWIO -> OIHW
+  conv kernel    HWIO -> OIHW (a DCN conv2 and its conv2_offset too)
   deconv kernel  HWIO -> IOHW (the Flax module flips it at call time)
-  dense kernel   (in, out) -> (out, in)
+  dense kernel   (in, out) -> (out, in) (SE fc1/fc2 -> se.fc.0/se.fc.2)
   batchnorm      scale/bias -> weight/bias, mean/var -> running_mean/var,
                  plus num_batches_tracked = 0
 """
@@ -29,21 +30,70 @@ __all__ = ["state_dict_from_flax"]
 _DECONV_MODULES = {"deconv1", "deconv2", "deconv3"}
 _DECONV_INDEX = {"deconv1": "0", "bn_d1": "1", "deconv2": "3", "bn_d2": "4",
                  "deconv3": "6", "bn_d3": "7"}
+_CONV_BN = {"conv": "0", "bn": "1"}       # Sequential(conv, bn[, relu])
+
+
+def _block_names(names: List[str]) -> List[str]:
+    """Inside a residual block: the shortcut, the SE layer's
+    Sequential(Linear, ReLU, Linear, Sigmoid), the rest as they are
+    (conv1..3, bn1..3, a DCN stage's conv2_offset and conv2)."""
+    if names[0] == "downsample_conv":
+        return ["downsample", "0"]
+    if names[0] == "downsample_bn":
+        return ["downsample", "1"]
+    if names[0] == "se":
+        return ["se", "fc", {"fc1": "0", "fc2": "2"}[names[1]]]
+    return names
+
+
+def _resnet_names(names: List[str]) -> List[str]:
+    m = re.fullmatch(r"layer(\d+)_(\d+)", names[0])
+    if m is None:
+        return names                                  # stem conv1 / bn1
+    return [f"layer{m.group(1)}", m.group(2)] + _block_names(names[1:])
 
 
 def _simplepose_name(names: List[str]) -> str:
     if names[0] == "preact":
-        out = ["preact"]
-        m = re.fullmatch(r"layer(\d+)_(\d+)", names[1])
-        if m is None:
-            return ".".join(out + names[1:])          # stem conv1 / bn1
-        out += [f"layer{m.group(1)}", m.group(2)]
-        for r in names[2:]:
-            out += {"downsample_conv": ["downsample", "0"],
-                    "downsample_bn": ["downsample", "1"]}.get(r, [r])
-        return ".".join(out)
+        return ".".join(["preact"] + _resnet_names(names[1:]))
     if names[0] in _DECONV_INDEX:
         return f"deconv_layers.{_DECONV_INDEX[names[0]]}"
+    return ".".join(names)                            # final_layer
+
+
+def _fastpose_name(names: List[str]) -> str:
+    if names[0] == "preact":
+        return ".".join(["preact"] + _resnet_names(names[1:]))
+    return ".".join(names)                  # duc1.conv, duc2.bn, conv_out
+
+
+def _shuffle_resnet_name(names: List[str]) -> str:
+    return ".".join(_resnet_names(names))
+
+
+def _hrnet_name(names: List[str]) -> str:
+    head = names[0]
+    stem = re.fullmatch(r"stem(\d)", head)
+    if stem:                                   # stem1/conv -> conv1 ...
+        return f"{names[1]}{stem.group(1)}"
+    m = re.fullmatch(r"layer1_(\d+)", head)
+    if m:
+        return ".".join(["layer1", m.group(1)] + _block_names(names[1:]))
+    m = re.fullmatch(r"transition(\d)_(\d+)(?:_(\d+))?", head)
+    if m:                                      # .i.{0,1} or .i.j.{0,1}
+        idx = [g for g in m.groups()[1:] if g is not None]
+        return ".".join([f"transition{m.group(1)}", *idx,
+                         _CONV_BN[names[1]]])
+    m = re.fullmatch(r"stage(\d)_(\d+)", head)
+    if m:
+        mod = [f"stage{m.group(1)}", m.group(2)]
+        b = re.fullmatch(r"branch(\d+)_(\d+)", names[1])
+        if b:
+            return ".".join(mod + ["branches", b.group(1), b.group(2)]
+                            + _block_names(names[2:]))
+        f = re.fullmatch(r"fuse(\d+)_(\d+)(?:_(\d+))?", names[1])
+        idx = [g for g in f.groups() if g is not None]
+        return ".".join(mod + ["fuse_layers", *idx, _CONV_BN[names[2]]])
     return ".".join(names)                            # final_layer
 
 
@@ -56,8 +106,10 @@ def _auxnet_name(names: List[str]) -> str:
     return ".".join(names)                            # proj, down0, fc0...
 
 
-_NAMES = {"SimplePose": _simplepose_name, "WholeBodyAE": _wholebody_ae_name,
-          "auxnet": _auxnet_name}
+_NAMES = {"SimplePose": _simplepose_name, "FastPose": _fastpose_name,
+          "PoseHighResolutionNet": _hrnet_name,
+          "ShuffleResnet": _shuffle_resnet_name,
+          "WholeBodyAE": _wholebody_ae_name, "auxnet": _auxnet_name}
 
 
 def _leaves(tree, prefix=()):

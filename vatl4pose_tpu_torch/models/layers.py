@@ -1,7 +1,10 @@
 """Building blocks with the reference's torch semantics (counterpart of
-vatl4pose_tpu/models/layers.py, the parts SimplePose-R50 needs):
-BatchNorm2d with eps 1e-5 and momentum 0.1, ConvTranspose2d(4, 2, 1)
-without bias, MaxPool2d(3, 2, 1)."""
+vatl4pose_tpu/models/layers.py): BatchNorm2d with eps 1e-5 and momentum
+0.1, ConvTranspose2d(4, 2, 1) without bias, MaxPool2d(3, 2, 1), the
+Squeeze-and-Excitation layer (SE_module.py:9-24) and DUC (DUC.py:9-29).
+The JAX package's `pixel_shuffle`/`pixel_unshuffle` are torch's
+nn.PixelShuffle/nn.PixelUnshuffle channel order written for NHWC; the
+port uses torch's own modules."""
 
 from __future__ import annotations
 
@@ -9,7 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-__all__ = ["BatchNorm2d", "batchnorm", "conv_transpose", "max_pool"]
+__all__ = ["BatchNorm2d", "batchnorm", "conv_transpose", "max_pool",
+           "SELayer", "DUC"]
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -56,3 +60,34 @@ def conv_transpose(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
 
 def max_pool() -> nn.MaxPool2d:
     return nn.MaxPool2d(3, stride=2, padding=1)
+
+
+class SELayer(nn.Module):
+    """GAP -> fc/reduction -> ReLU -> fc -> sigmoid -> channel scale, with
+    the reference's `fc.0`/`fc.2` names."""
+
+    def __init__(self, channel: int, reduction: int = 16):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channel, channel // reduction),
+                                nn.ReLU(inplace=True),
+                                nn.Linear(channel // reduction, channel),
+                                nn.Sigmoid())
+
+    def forward(self, x):
+        y = self.fc(x.mean(dim=(2, 3)))
+        return x * y[:, :, None, None]
+
+
+class DUC(nn.Module):
+    """Dense Upsampling Convolution: 3x3 conv -> BN -> ReLU ->
+    PixelShuffle(upscale_factor)."""
+
+    def __init__(self, inplanes: int, planes: int, upscale_factor: int = 2):
+        super().__init__()
+        self.conv = nn.Conv2d(inplanes, planes, 3, padding=1, bias=False)
+        self.bn = batchnorm(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.pixel_shuffle = nn.PixelShuffle(upscale_factor)
+
+    def forward(self, x):
+        return self.pixel_shuffle(self.relu(self.bn(self.conv(x))))

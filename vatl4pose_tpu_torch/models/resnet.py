@@ -1,7 +1,14 @@
 """ResNet backbones in PyTorch (counterpart of vatl4pose_tpu/models/
 resnet.py), with the reference's module names (alphapose/models/layers/
-Resnet.py: `conv1`, `bn1`, `layer2.3.conv1`, `downsample.0`), so a
+Resnet.py: `conv1`, `bn1`, `layer2.3.conv1`, `downsample.0`; SE_Resnet.py:
+`layer1.0.se.fc.0`; a DCN stage's `conv2_offset` and `conv2`), so a
 reference state_dict loads as it is.
+
+`use_se=True` is the SE-ResNet of FastPose: SE only on each stage's
+downsampling block (SE_Resnet.py:199-207).  `dcn` with `stage_with_dcn`
+makes every 3x3 of the flagged stages a deformable one
+(kernels/deform_conv.py, Resnet.py:68-97) whose offsets come from a
+zero-initialised `conv2_offset`.
 
 Tensors are NCHW at the module boundary and channels-last in memory.
 
@@ -20,8 +27,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..kernels.deform_conv import DeformConv2d
 from ..kernels.fused_bottleneck import fold_bn, fused_bottleneck_chain
-from .layers import batchnorm, max_pool
+from .layers import SELayer, batchnorm, max_pool
 
 RESNET_SPECS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -55,21 +63,40 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, downsample=None,
+                 use_se=False, dcn=None):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = batchnorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        if dcn is None:
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        else:
+            groups = dcn.get("DEFORM_GROUP", 1)
+            modulated = dcn.get("MODULATED", False)
+            self.conv2_offset = nn.Conv2d(
+                planes, (27 if modulated else 18) * groups, 3, stride, 1)
+            nn.init.zeros_(self.conv2_offset.weight)
+            nn.init.zeros_(self.conv2_offset.bias)
+            self.conv2 = DeformConv2d(planes, planes, 3, stride, 1, groups,
+                                      modulated)
         self.bn2 = batchnorm(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = batchnorm(planes * 4)
+        if use_se:
+            self.se = SELayer(planes * 4)
         self.downsample = downsample
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
         out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
+        if hasattr(self, "conv2_offset"):
+            out = self.conv2(out, self.conv2_offset(out))
+        else:
+            out = self.conv2(out)
+        out = torch.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
+        if hasattr(self, "se"):
+            out = self.se(out)
         return torch.relu(out + identity)
 
     def folded(self, dtype):
@@ -88,11 +115,15 @@ class ResNet(nn.Module):
     """Stride-32 feature extractor: NCHW in, NCHW (channels-last) out."""
 
     def __init__(self, depth: int = 50, fused_eval: bool = False,
-                 device=None):
+                 use_se: bool = False, dcn=None,
+                 stage_with_dcn=(False, False, False, False), device=None):
         super().__init__()
         kind, layers = RESNET_SPECS[depth]
         block = Bottleneck if kind == "bottleneck" else BasicBlock
         self.fused_eval = fused_eval and block is Bottleneck
+        # the chain kernel takes plain bottlenecks only: no tail of a DCN
+        # stage goes through it (SE sits on block 0, outside the tail)
+        self.stage_dcn = [dcn is not None and bool(f) for f in stage_with_dcn]
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = batchnorm(64)
         self.maxpool = max_pool()
@@ -105,17 +136,30 @@ class ResNet(nn.Module):
                     nn.Conv2d(inplanes, planes * block.expansion, 1, stride,
                               bias=False),
                     batchnorm(planes * block.expansion))
-            blocks = [block(inplanes, planes, stride, downsample)]
+            blocks = [self._block(block, inplanes, planes, stride,
+                                  downsample, use_se,
+                                  dcn if self.stage_dcn[li] else None)]
             inplanes = planes * block.expansion
-            blocks += [block(inplanes, planes) for _ in range(1, n)]
+            blocks += [self._block(block, inplanes, planes, 1, None, use_se,
+                                   dcn if self.stage_dcn[li] else None)
+                       for _ in range(1, n)]
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         self.to(resolve_device(device))
+
+    @staticmethod
+    def _block(block, inplanes, planes, stride, downsample, use_se, dcn):
+        if block is BasicBlock:       # SE and DCN are bottleneck options
+            return BasicBlock(inplanes, planes, stride, downsample)
+        # SE on the stage's downsampling block only
+        return Bottleneck(inplanes, planes, stride, downsample,
+                          use_se=use_se and downsample is not None, dcn=dcn)
 
     def forward(self, x):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         for li in range(4):
             layer = getattr(self, f"layer{li + 1}")
-            if self.fused_eval and not self.training and len(layer) > 1:
+            if self.fused_eval and not self.training and len(layer) > 1 \
+                    and not self.stage_dcn[li]:
                 x = _fused_tail(layer[0](x), layer[1:])
             else:
                 x = layer(x)

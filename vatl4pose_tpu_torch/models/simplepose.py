@@ -34,6 +34,15 @@ class SimplePose(nn.Module):
         self.final_layer = nn.Conv2d(deconv_dim[2], num_joints, 1)
         self.to(resolve_device(device))
 
+    @classmethod
+    def from_cfg(cls, model_cfg, preset_cfg, fused_eval=False, device=None):
+        """The reference's MODEL keys: NUM_LAYERS, NUM_DECONV_FILTERS."""
+        return cls(num_joints=preset_cfg["NUM_JOINTS"],
+                   num_layers=model_cfg.get("NUM_LAYERS", 50),
+                   deconv_dim=tuple(model_cfg.get("NUM_DECONV_FILTERS",
+                                                  (256, 256, 256))),
+                   fused_eval=fused_eval, device=device)
+
     def backbone(self, x):
         """x: (N, 3, H, W) -> the stride-32 feature (N, 2048, H/32, W/32),
         channels-last; with fused_eval the bottleneck tails run through
