@@ -60,7 +60,11 @@ Phases, each of which fails the run on error, each with its wall time:
      query every sample once and launch K1 and K2 per chunk and K3 never;
      the host warp's ms per chunk, the card's idle share of a streamed
      pass, streamed scores against resident ones (the JAX package's
-     bounds) and chunk 256 against chunk 512 (1e-5);
+     bounds) and chunk 256 against chunk 512 (1e-5).  The loop starts from
+     weights pre-trained on the video by jrdbpose_train's trainer, whose
+     training accuracy must reach STREAM_PRETRAIN_ACC; that training and
+     the loop's retrains run on deterministic algorithms (ROADMAP C6), and
+     a retrain step's cost in that mode is printed;
   8. C1's card check: the DUW loop on a small R50 config on the card and
      on the CPU, both through the port, from weights pretrained on the
      video (every round's query list equal) and from random weights
@@ -87,7 +91,16 @@ Phases, each of which fails the run on error, each with its wall time:
      step, K1 never); the JAX package's plain kernels in eager PyTorch
      (deformable convolution v1/v2 with gradients, RoIAlign, deformable
      PS-RoI pooling) on the card against the CPU, timed;
- 11. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+ 11. the entry points before the AL loop (phase_pretraining):
+     posetrack_train at full width (SimplePose-R50, 256x192, batch 180,
+     the simplebaseline config's schedule cut to 40 epochs with its DPG
+     stage, from phase 7's weights) on phase 3's video, K3 once a step and
+     K1 4, K2 1, K3 1 a
+     validation pass, its checkpoints against the model in memory; its
+     streaming branch on a set of three frame sizes; jrdbpose_train's
+     guard; poseestimator_eval on model_best.pth; wholebodyAE_train; the
+     two checkpoints handed to ActiveLearning's loaders;
+ 12. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -163,16 +176,33 @@ AL_CFG = {
 # 3760x480x3 = 5.41 MB), 96 frames = 0.48 GiB, 8 persons a frame = 768
 # samples (scoring chunks of 512 and 256), on AL_CFG with two cuts:
 # QUERY_RATIO 9 rounds -> 3, and the frame budget 4 GiB -> 0.25 GiB so
-# that this video streams (a real scene streams past about 793 frames)
+# that this video streams (a real scene streams past about 793 frames);
+# RETRAIN.ALPHA 250 -> STREAM_ALPHA, not phase 5's 4: a continual round
+# retrains ALPHA * (1 - the queries' mean OKS) epochs, which from
+# pre-trained weights (mean OKS 0.82, then 0.29) round down to none at 4
+# and come to 764 steps, 232 s, at the published 250
+# (scripts/c6_repeat.py)
 WIDE_VIDEO = dict(num_frames=96, num_persons=8, width=3760, height=480)
 STREAM_QUERY_RATIO = [0.05, 0.5, 1.0]
 STREAM_BUDGET_GB = 0.25
-# before its loop, phase 7 trains the seeded R50 on the wide video:
-# STREAM_PRETRAIN_EPOCHS (about 315 steps of 120) of AL_CFG's retrainer at
-# LR 1e-3, Adam's usual rate from scratch (the loop fine-tunes at 2.5e-4),
-# and without AUG's rotations and scalings (the scoring crops have none)
-STREAM_PRETRAIN_EPOCHS = 45
-STREAM_PRETRAIN_LR = 1e-3
+STREAM_ALPHA = 20
+# before its loop, phase 7 pre-trains an R50 on the wide video with the
+# JRDB pre-training CLI's trainer (jrdbpose_train: PRETRAIN_TRAIN below,
+# Adam at the published 1e-3, batch 180, from the model's own init), for
+# STREAM_PRETRAIN_EPOCHS with a linear warmup over
+# STREAM_PRETRAIN_WARMUP epochs and the rate cut tenfold at
+# STREAM_PRETRAIN_LR_STEP, without AUG's rotations and scalings (the
+# scoring crops have none); its last epoch's training accuracy must reach
+# STREAM_PRETRAIN_ACC.  Both that training and the loop's retrains run on
+# deterministic algorithms (ROADMAP C6).
+STREAM_PRETRAIN_EPOCHS = 40
+STREAM_PRETRAIN_WARMUP = 5
+STREAM_PRETRAIN_LR_STEP = [35]
+STREAM_PRETRAIN_ACC = 0.5
+# deterministic cuBLAS needs a fixed workspace: 8 buffers of 4096 KiB, the
+# size PyTorch already gives a Hopper card by default, set before the
+# first cuBLAS call
+CUBLAS_WORKSPACE = ":4096:8"
 # C1's card-vs-CPU loop (phase 8): configs/synthetic/al_simple_synthetic.
 # yaml transcribed (128x96 input, 32x24 maps, RETRAIN, QUERY_RATIO), with
 # SimplePose-R50 for its R18 (R18's basic blocks never reach K1) and the
@@ -185,6 +215,49 @@ C1_CFG["AE"].update(EPOCH=2)
 C1_CFG["RETRAIN"].update(BATCH_SIZE=16, BASE=1, ALPHA=2)
 C1_CFG["VAL"].update(BATCH_SIZE=64, QUERY_RATIO=[0.34, 0.67, 1.0],
                      VIS=False)
+# the pre-training path (phase 11): configs/posetrack21/
+# simplebaseline_posetrack21.yaml transcribed (this script may run where
+# PyYAML is missing): SimplePose-R50 at 256x192, deconv 256x3, 64x48 maps,
+# sigma 2; TRAIN batch 180, Adam at 1e-3, LR_FACTOR 0.1; AUG flip,
+# rotation 40, scale 0.3.  Cuts: the schedule's epochs by 5 (END_EPOCH
+# 200 -> 40, LR_STEP [90, 120] -> [18, 24], DPG_MILESTONE 140 -> 28,
+# DPG_STEP [160, 190] -> [32, 38]), WORLD_SIZE 4 -> one card (BATCH_SIZE
+# is the whole batch, as in the JAX CLI; data parallel is ROADMAP A14);
+# --snapshot 2.  MODEL.PRETRAINED '' -> phase 7's pre-trained weights, in
+# the place of the reference's ImageNet-initialised backbone: from the
+# model's own init no validation gets past an AP of 0.001 in 40 epochs
+# (0 in 8), so that model_best.pth, the evaluation and the hand-off would
+# hold an untrained model; from phase 7's weights 40 epochs reach about
+# 0.5 (8 reach 0.0003; scripts/pretrain_probe.py)
+PRETRAIN_TRAIN = {"WORLD_SIZE": 1, "BATCH_SIZE": 180, "BEGIN_EPOCH": 0,
+                  "END_EPOCH": 40, "OPTIMIZER": "adam", "LR": 0.001,
+                  "LR_FACTOR": 0.1, "LR_STEP": [18, 24],
+                  "DPG_MILESTONE": 28, "DPG_STEP": [32, 38]}
+PRETRAIN_CFG = {
+    "DATASET": {
+        "TRAIN": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
+                  "ANN": "",
+                  "AUG": {"FLIP": True, "ROT_FACTOR": 40,
+                          "SCALE_FACTOR": 0.3, "NUM_JOINTS_HALF_BODY": 8,
+                          "PROB_HALF_BODY": -1}},
+        "TEST": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
+                 "ANN": ""}},
+    "DATA_PRESET": AL_CFG["DATA_PRESET"],
+    "MODEL": AL_CFG["MODEL"],
+    "LOSS": {"TYPE": "MSELoss"},
+    "TRAIN": PRETRAIN_TRAIN,
+    "VAL": {"BATCH_SIZE": 320},
+}
+PRETRAIN_SNAPSHOT = 2
+# the streaming branch: a combined set of three synthetic videos at the
+# three frame sizes of make_synthetic_multivideo (240 samples, two steps
+# an epoch), 2 epochs
+PRETRAIN_STREAM_SET = dict(num_videos=3, num_frames=20, num_persons=4,
+                           appearance_jitter=True)
+PRETRAIN_STREAM_EPOCHS = 2
+# the AE's pre-training: wholebodyAE_train's defaults (z 4, batch 10000,
+# patience 30) with --epochs 80 -> 45, past both of its rate cuts (12, 40)
+AE_PRETRAIN_EPOCHS = 45
 # the fields of run_active_learning.save_result
 RESULT_FIELDS = {
     "config_file", "video_id", "strategy", "model", "percentages",
@@ -197,6 +270,53 @@ RESULT_FIELDS = {
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Every op on deterministic algorithms (cuDNN's included) for the
+    duration, then the previous settings back, so that no other phase's
+    timing changes.  Ops with no deterministic implementation warn instead
+    of raising, and are printed: their presence means the run is not
+    deterministic.  CUBLAS_WORKSPACE_CONFIG is set by main() before the
+    first cuBLAS call."""
+    import os
+    import warnings
+    import torch
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.benchmark)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.benchmark = False
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+            torch.backends.cudnn.benchmark = was[2]
+    ops = sorted({str(w.message).split(" does not have")[0][:120]
+                  for w in caught if "deterministic" in str(w.message)})
+    if ops:
+        log(f"deterministic mode: ops without a deterministic "
+            f"implementation ran: {ops}")
+
+
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """owner.name replaced by make(original) for the duration."""
+    orig = getattr(owner, name)
+    setattr(owner, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def launch_counts():
+    from vatl4pose_tpu_torch.kernels import KERNELS
+    return {k.__name__: k.launches for k in KERNELS}
 
 
 def cuda_ms(fn, reps=10, warm=2, inner=1):
@@ -809,20 +929,21 @@ def make_video(seed):
     """The main paths' input: a synthetic video of 64 frames x 8 persons
     at 640x360 (512 samples), decoded to (F, H, W, 3) uint8 frames, which
     stay on the card across passes as an AL loop keeps them across rounds;
-    with its VideoPoseData, joint pairs and the score() arguments."""
+    with its VideoPoseData, joint pairs, the score() arguments, and its
+    files (root, ann) in a directory that lives as long as the namespace
+    (`tmpdir`)."""
     import types
     import numpy as np
     import torch
     from vatl4pose_tpu_torch.data import build_dataset, make_synthetic_video
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        root, ann = make_synthetic_video(tmp, seed=seed, **VIDEO)
-        ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root,
-                            "ANN": ann})
-        frames = ds.load_frames()
-        log(f"synthetic video: {len(ds)} samples, {frames.shape[0]} frames "
-            f"{frames.shape[2]}x{frames.shape[1]}, generated in "
-            f"{time.perf_counter() - t0:.1f} s")
+    tmpdir = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    root, ann = make_synthetic_video(tmpdir.name, seed=seed, **VIDEO)
+    ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root, "ANN": ann})
+    frames = ds.load_frames()
+    log(f"synthetic video: {len(ds)} samples, {frames.shape[0]} frames "
+        f"{frames.shape[2]}x{frames.shape[1]}, generated in "
+        f"{time.perf_counter() - t0:.1f} s")
     d = ds.data
     if len(d) < BATCH:
         raise AssertionError(f"the video has {len(d)} samples, fewer than "
@@ -833,7 +954,7 @@ def make_video(seed):
                          d.bboxes[:, 3] - d.bboxes[:, 1]], 1)
     return types.SimpleNamespace(
         frames=frames, frames_dev=frames_dev, data=d,
-        joint_pairs=ds.joint_pairs,
+        joint_pairs=ds.joint_pairs, tmpdir=tmpdir, root=root, ann=ann,
         args=(frames_dev, d.frame_idx, d.bboxes, d.gt_keypoints, bbox_ann,
               d.is_prev, d.is_next))
 
@@ -1588,7 +1709,8 @@ def phase_streaming_loop(card, seed):
     JRDB-wide video of make_wide_video (96 frames, 0.48 GiB, 768 samples:
     scoring chunks of 512 and 256) as a JRDB2022 dataset, AL_CFG with two
     cuts (VAL.QUERY_RATIO [0.05, 0.5, 1.0], and VAL.HBM_FRAME_BUDGET_GB
-    0.25 so that the video streams), from seeded R50 weights.  Checked:
+    0.25 so that the video streams) and RETRAIN.ALPHA STREAM_ALPHA.
+    Checked:
     the loop streams (al.streaming, no frames on the card), every sample
     queried once, result.json and cycle_times.jsonl complete, K1 4x and
     K2 1x a chunk, K3 never (the crops come from the host warp).  The
@@ -1596,10 +1718,15 @@ def phase_streaming_loop(card, seed):
     K3's crops; streamed_vs_resident) twice: on the seeded weights, as
     the JAX package's test compares them on random ones, and on the
     loop's retrained weights, THC there to its heatmap scale.  The loop
-    starts from the seeded weights trained on the video first
-    (STREAM_PRETRAIN_EPOCHS, frames on the card), as a user's model comes
-    pretrained: the loop's few steps from the seeded weights alone leave
-    maps with many near ties, which the host crop's uint8 rounding flips.
+    starts, as a user's does, from weights pre-trained on other videos:
+    stream_pretrain on a second wide video (seed + 1), whose training
+    accuracy must reach STREAM_PRETRAIN_ACC (the loop's few steps from
+    seeded weights leave maps with many near ties, which the host crop's
+    uint8 rounding flips); that training and the loop's retrains run on
+    deterministic algorithms, so that the retrained weights, and the
+    shares, repeat from call to call (ROADMAP C6); a retrain step's cost in
+    that mode is printed.  The pre-trained weights are returned beside the
+    results, for phase 11.
     Then on the retrained weights also the card's idle share of one
     streamed pass (profiler), and the streamed path at chunk 256 against
     chunk 512 within 1e-5, with cuDNN held to deterministic algorithms."""
@@ -1618,6 +1745,7 @@ def phase_streaming_loop(card, seed):
         cfg = Cfg(copy.deepcopy(AL_CFG))
         cfg.VAL.QUERY_RATIO = list(STREAM_QUERY_RATIO)
         cfg.VAL.HBM_FRAME_BUDGET_GB = STREAM_BUDGET_GB
+        cfg.RETRAIN.ALPHA = STREAM_ALPHA
         for split in ("TRAIN", "EVAL"):
             cfg.DATASET[split].TYPE = "JRDB2022"
             cfg.DATASET[split].ROOT = root
@@ -1639,34 +1767,42 @@ def phase_streaming_loop(card, seed):
         seeded, seeded_failed = streamed_vs_resident(
             "streaming loop, seeded weights", engine, ds.frame_store(),
             frames, args)
-        del engine
+        del engine, model
         ae.cpu()
-        t0 = time.perf_counter()
-        loss, acc = pretrain(
-            model, dict(AL_CFG, RETRAIN=dict(AL_CFG["RETRAIN"],
-                                             LR=STREAM_PRETRAIN_LR)),
-            ds, frames, STREAM_PRETRAIN_EPOCHS, seed,
-            aug=dict(AUG, scale_factor=0.0, rot_factor=0.0))
-        log(f"streaming loop: pretrained on the card, "
-            f"{STREAM_PRETRAIN_EPOCHS} epochs of {len(ds)} samples in "
-            f"{time.perf_counter() - t0:.1f} s: loss {loss:.6f}, acc "
-            f"{acc:.4f}")
-        write_weights(tmp, cfg, model, ae)
+        # a user's model comes pre-trained on other videos: a second wide
+        # video (another seed).  Trained on the loop's own video it decodes
+        # every query at OKS ~1, and the loop's continual retrains,
+        # ALPHA * (1 - mean OKS) epochs, round down to none
+        proot, pann = make_wide_video(f"{tmp}/pretrain_video", seed + 1)
+        pre = stream_pretrain(proot, pann, f"{tmp}/pretrain", seed)
+        model = pre.pop("model")
+        jrdb_state = {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}
+        pre_failed = []
+        if not pre["acc"] >= STREAM_PRETRAIN_ACC:
+            pre_failed.append(f"pretraining reached training accuracy "
+                              f"{pre['acc']:.4f}, below "
+                              f"{STREAM_PRETRAIN_ACC}")
+        pre["step_ms"] = deterministic_step_cost(
+            model, ds, torch.from_numpy(frames).cuda(), seed)
+        write_weights(tmp, cfg, model.cpu(), ae)
         del model, ae
+        torch.cuda.empty_cache()
         argv = ["--cfg", "configs/jrdb-pose (JRDB-wide synthetic)",
                 "--video_id", "000001", "--uncertainty", "THC+WPU",
                 "--representativeness", "Influence", "--filter", "Coreset",
                 "--continual", "--seedfix", "--synthetic", "--memo",
                 "chip_smoke_stream"]
-        rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-            cfg, argv, tmp, prepare=False)
+        with deterministic_retrains():
+            rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
+                cfg, argv, tmp, prepare=False)
         al = calls.al
         n = al.eval_len
         label = "streaming loop"
         phase_sums, table, failed = loop_report(label, rj, cycles, counts,
                                                 calls, loop_s, n, rounds,
                                                 card)
-        failed += seeded_failed
+        failed += seeded_failed + pre_failed
         if not (al.streaming and al.frames_dev is None):
             failed.append(f"streaming {al.streaming}, frames on the card "
                           f"{al.frames_dev is not None}")
@@ -1740,14 +1876,14 @@ def phase_streaming_loop(card, seed):
     log(f"{label}: chunk 256 vs 512 max|diff| {chunk_err} (bar 1e-5)")
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
-    return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
-            "chunks_per_pass": chunks, "launches": counts,
-            "launches_by_dtype": by_dtype, "phase_s": phase_sums,
-            "rounds": table, "host_warp": warp, "pass_s": pass_s,
-            "idle_share": idle, "pretrain": {"loss": loss, "acc": acc},
-            "streamed_vs_resident": {"seeded": seeded,
-                                     "retrained": retrained},
-            "chunk_256_vs_512": chunk_err}
+    return jrdb_state, {
+        "loop_s": loop_s, "passes": passes, "train_steps": steps,
+        "chunks_per_pass": chunks, "launches": counts,
+        "launches_by_dtype": by_dtype, "phase_s": phase_sums,
+        "rounds": table, "host_warp": warp, "pass_s": pass_s,
+        "idle_share": idle, "pretrain": pre,
+        "streamed_vs_resident": {"seeded": seeded, "retrained": retrained},
+        "chunk_256_vs_512": chunk_err}
 
 
 def streamed_vs_resident(label, engine, store, frames, args,
@@ -1816,6 +1952,111 @@ def streamed_vs_resident(label, engine, store, frames, args,
                           f"{ok.mean():.4f} within the bound")
     log(f"{label}: streamed vs resident, share within the JAX bounds {cmp}")
     return cmp, failed
+
+
+def stream_pretrain(root, ann, work_dir, seed):
+    """Phase 7's pre-training on the wide video: the JRDB pre-training
+    CLI's trainer (jrdbpose_train's guard, then posetrack_train.train) on
+    PRETRAIN_CFG with the wide video as its JRDB2022 set, no flips (the
+    synthetic skeleton is not JRDB's), no rotations or scalings (the
+    scoring crops have none), STREAM_PRETRAIN_EPOCHS with a linear warmup
+    over STREAM_PRETRAIN_WARMUP epochs and the rate cut tenfold at
+    STREAM_PRETRAIN_LR_STEP, from the model's own init, frames on the
+    card, one validation (validate_gt) at the end; under deterministic
+    algorithms.  Returns the model (on the card, in train mode) and the
+    last epoch's loss, acc and AP, the first epoch's loss and acc, the
+    wall, the K3 launches (one an optimizer step, one the validation) and
+    the steps."""
+    import argparse
+    import torch
+    from vatl4pose_tpu_torch.cli import jrdbpose_train, posetrack_train
+    from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.kernels import reset_launch_counts
+    cfg = Cfg(copy.deepcopy(PRETRAIN_CFG))
+    cfg.DATASET.TRAIN.update(TYPE="JRDB2022", ROOT=root, ANN=ann)
+    cfg.DATASET.TRAIN.AUG.update(FLIP=False, ROT_FACTOR=0, SCALE_FACTOR=0.0)
+    cfg.TRAIN.update(END_EPOCH=STREAM_PRETRAIN_EPOCHS,
+                     LR_STEP=list(STREAM_PRETRAIN_LR_STEP),
+                     WARMUP_EPOCHS=STREAM_PRETRAIN_WARMUP)
+    cfg.TRAIN.pop("DPG_MILESTONE")
+    jrdbpose_train.check_jrdb(cfg)
+    opt = argparse.Namespace(seed=seed, snapshot=STREAM_PRETRAIN_EPOCHS,
+                             epochs_override=None, work_dir=work_dir,
+                             stream=False, launcher="none", device=None)
+    with CallLog() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        with deterministic():
+            model, history = posetrack_train.train(cfg, opt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = calls.train_steps
+    first, last = history[0], history[-1]
+    for h in history:
+        if h["epoch"] % 10 == 9 or h is first or h is last:
+            log(f"streaming loop pretraining (jrdbpose_train), epoch "
+                f"{h['epoch']}: loss {h['loss']:.6f} acc {h['acc']:.4f} lr "
+                f"{h['lr']:.1e} wall {h['wall_s']:.2f} s"
+                + (f" AP {h['ap']:.4f}" if "ap" in h else ""))
+    log(f"streaming loop pretraining: {len(history)} epochs, {steps} "
+        f"optimizer steps at batch {PRETRAIN_TRAIN['BATCH_SIZE']} in "
+        f"{wall:.1f} s; training accuracy {last['acc']:.4f} (bar "
+        f"{STREAM_PRETRAIN_ACC}); launches {counts}")
+    return {"model": model, "epochs": len(history), "steps": steps,
+            "wall_s": wall, "first": {"loss": first["loss"],
+                                      "acc": first["acc"]},
+            "loss": last["loss"], "acc": last["acc"], "ap": last.get("ap"),
+            "launches": counts}
+
+
+def deterministic_step_cost(model, ds, frames_dev, seed, steps=5):
+    """ms of one retrain step of the AL loop's retrainer (RETRAIN: batch
+    120, AdamW) on a copy of `model`, frames on the card: the median of
+    `steps` steps after two warm ones, CUDA events, with the default
+    algorithms and with deterministic ones."""
+    import types
+    import numpy as np
+    import torch
+    video = types.SimpleNamespace(data=ds.data, joint_pairs=ds.joint_pairs)
+    tr = make_retrainer(copy.deepcopy(model), video, seed=seed)
+    tr.model.train()
+    batch = train_batch(video, RETRAIN["BATCH_SIZE"],
+                        np.random.default_rng(seed))
+    out = {}
+    for mode in ("default", "deterministic"):
+        ctx = deterministic() if mode == "deterministic" \
+            else contextlib.nullcontext()
+        with ctx:
+            out[mode] = cuda_ms(lambda: tr.train_step(frames_dev, *batch),
+                                reps=steps)
+    log(f"retrain step at batch {RETRAIN['BATCH_SIZE']}: "
+        f"{out['default']:.1f} ms with the default algorithms, "
+        f"{out['deterministic']:.1f} ms with deterministic ones "
+        f"(median of {steps}, CUDA events)")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_retrains():
+    """The AL loop's estimator retrains and AE fine-tunes on deterministic
+    algorithms (its scoring passes as they are), for the duration."""
+    from vatl4pose_tpu_torch.train import retrain
+
+    def held(method):
+        def run(*a, **kw):
+            with deterministic():
+                return method(*a, **kw)
+        return run
+    with contextlib.ExitStack() as stack:
+        for owner, name in ((retrain.Retrainer, "retrain"),
+                            (retrain.Retrainer, "retrain_streaming"),
+                            (retrain.AETrainer, "train")):
+            stack.enter_context(patched(owner, name, held))
+        yield
 
 
 def pretrain(model, cfg, ds, frames, epochs, seed, aug=AUG):
@@ -2524,6 +2765,405 @@ def phase_plain_kernels(seed):
     return out
 
 
+def pretrain_schedule(epoch):
+    """The rate PRETRAIN_TRAIN's schedule gives an epoch: MultiStepLR on
+    LR_STEP, restarted on DPG_STEP at DPG_MILESTONE."""
+    t = PRETRAIN_TRAIN
+    steps = t["DPG_STEP"] if epoch >= t["DPG_MILESTONE"] else t["LR_STEP"]
+    return t["LR"] * t["LR_FACTOR"] ** sum(epoch >= m for m in steps)
+
+
+def eval_heatmaps(model, frames_dev, d, n=32):
+    """The first n samples' scoring crops through `model` in eval mode
+    (K1 on its tails), on deterministic algorithms."""
+    import torch
+    from vatl4pose_tpu_torch.ops import crop_batch
+    crops = crop_batch(frames_dev, d.frame_idx[:n], d.bboxes[:n],
+                       INPUT_SIZE)[0].permute(0, 3, 1, 2)
+    was = model.training
+    model.eval()
+    try:
+        with deterministic(), torch.no_grad():
+            return model(crops)
+    finally:
+        model.train(was)
+
+
+def phase_pretraining(video, card, seed, init_state=None):
+    """The pre-training, evaluation and AE-training entry points of a
+    user's workflow before the AL loop, through their functions (the card
+    has no PyYAML: PRETRAIN_CFG transcribes the config):
+      - posetrack_train.train at full width on phase 3's video (512
+        samples, frames on the card, K3 once an optimizer step at batch
+        180), PRETRAIN_TRAIN's cut schedule with its DPG stage, from
+        `init_state` (phase 7's pre-trained weights) as MODEL.PRETRAINED;
+        checked:
+        every epoch's rate is the schedule's, the loss finite every epoch
+        and lower at the last than at the first, K3 launched once a step,
+        every validate_gt pass K1 4, K2 1 and K3 1, the checkpoints
+        written, model_best.pth and the last model_{epoch}.pth loaded
+        strictly into a fresh SimplePose give heatmaps (32 samples) bit-
+        equal to the model's in memory at those epochs; printed: ms a step
+        (CUDA events, warm), each epoch's wall, each validation's wall and
+        AP, the card's idle share over one profiled epoch;
+      - the streaming branch: train on a three-size make_synthetic_multivideo
+        set (240 samples), which forces the host-RAM frames and host-warp
+        crops; checked: it streams, K3 never launches, the loss is finite;
+        printed: the host warp's ms a batch, the idle share of a profiled
+        epoch;
+      - jrdbpose_train's guard refuses the Posetrack21 set;
+      - poseestimator_eval.validate on model_best.pth with the video as
+        its TEST split; checked: its AP equals validate_gt's on the same
+        weights, predicted_kpt_TEST.json holds one entry a sample with a
+        finite OKS, K1 4, K2 1 and K3 1; printed: samples/s;
+      - wholebodyAE_train.train_ae on the Wholebody features of the
+        video's annotation (validation: the multi-video set's), z 4, batch
+        10000, AE_PRETRAIN_EPOCHS; checked: finite losses, the best
+        checkpoint written;
+      - the hand-off: ActiveLearning's own loaders read model_best.pth and
+        the AE checkpoint; one THC+WPU scoring pass of its engine equals
+        (every output) the same pass from the models in memory.
+    Returns the numbers and the launches of each path."""
+    import argparse
+    import os
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.al import ActiveLearning, ScoringEngine
+    from vatl4pose_tpu_torch.cli import jrdbpose_train, poseestimator_eval
+    from vatl4pose_tpu_torch.cli import posetrack_train as pt
+    from vatl4pose_tpu_torch.cli import wholebodyAE_train as ae_cli
+    from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.data import (Wholebody, build_dataset,
+                                          make_synthetic_multivideo)
+    from vatl4pose_tpu_torch.data.stream import CropStreamer
+    from vatl4pose_tpu_torch.kernels import reset_launch_counts
+    from vatl4pose_tpu_torch.models import SimplePose
+    from vatl4pose_tpu_torch.models.convert import read_weights
+    from vatl4pose_tpu_torch.train import Retrainer
+
+    failed, out = [], {}
+    root, ann = video.root, video.ann
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Cfg(copy.deepcopy(PRETRAIN_CFG))
+        if init_state is not None:
+            cfg.MODEL.PRETRAINED = f"{tmp}/init.pth"
+            torch.save(init_state, cfg.MODEL.PRETRAINED)
+        for split in ("TRAIN", "TEST"):
+            cfg.DATASET[split].update(ROOT=root, ANN=ann)
+        work = f"{tmp}/pretrain"
+        opt = argparse.Namespace(seed=seed, snapshot=PRETRAIN_SNAPSHOT,
+                                 epochs_override=None, work_dir=work,
+                                 stream=False, launcher="none", device=None)
+
+        # ---- resident pre-training ---------------------------------------
+        passes, events = [], []
+
+        def recorded(validate):
+            def run(cfg_, model, *a, **kw):
+                torch.cuda.synchronize()
+                before, t0 = launch_counts(), time.perf_counter()
+                ap = validate(cfg_, model, *a, **kw)
+                torch.cuda.synchronize()
+                passes.append({
+                    "ap": ap, "wall_s": time.perf_counter() - t0,
+                    "launches": {k: v - before[k]
+                                 for k, v in launch_counts().items()},
+                    "state": {k: v.detach().clone()
+                              for k, v in model.state_dict().items()}})
+                return ap
+            return run
+
+        def timed(step):
+            def run(self, *a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = step(self, *a, **kw)
+                ev[1].record()
+                events.append(ev)
+                return res
+            return run
+
+        with patched(pt, "validate_gt", recorded), \
+                patched(Retrainer, "train_step", timed):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            model, history = pt.train(cfg, opt)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = launch_counts()
+        label = "pretraining"
+        ds = build_dataset(cfg.DATASET.TRAIN)
+        steps = len(events)
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        per_epoch = steps // len(history)
+        for h in history:
+            if h["epoch"] and "ap" not in h:
+                continue
+            log(f"{label} epoch {h['epoch']}: lr {h['lr']:.1e} loss "
+                f"{h['loss']:.6f} acc {h['acc']:.4f} wall {h['wall_s']:.3f} "
+                f"s" + (f", validate_gt AP {h['ap']:.4f}" if "ap" in h
+                        else ""))
+        for p in passes:
+            log(f"{label}: validate_gt pass {p['wall_s']:.3f} s "
+                f"({len(ds) / p['wall_s']:.1f} samples/s), AP "
+                f"{p['ap']:.4f}, launches {p['launches']}")
+        warm = statistics.median(step_ms[per_epoch:])
+        log(f"{label}: {len(history)} epochs, {steps} optimizer steps at "
+            f"batch {PRETRAIN_TRAIN['BATCH_SIZE']} in {train_s:.2f} s; warm "
+            f"step {warm:.1f} ms (median of steps {per_epoch + 1}-{steps}, "
+            f"CUDA events); launches {counts}; {card}")
+        want_lr = [pretrain_schedule(h["epoch"]) for h in history]
+        if [h["lr"] for h in history] != want_lr:
+            failed.append(f"rates {[h['lr'] for h in history]}, schedule "
+                          f"{want_lr}")
+        losses = [h["loss"] for h in history]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            failed.append(f"losses {losses}")
+        k3_passes = sum(p["launches"]["rot_warp_crop"] for p in passes)
+        if counts["rot_warp_crop"] - k3_passes != steps:
+            failed.append(f"K3 {counts['rot_warp_crop']} launches for "
+                          f"{steps} steps and {len(passes)} passes")
+        want_pass = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
+                     "rot_warp_crop": 1}
+        if not passes or any(p["launches"] != want_pass for p in passes):
+            failed.append(f"validate_gt launches "
+                          f"{[p['launches'] for p in passes]}")
+        aps = [p["ap"] for p in passes]
+        best = int(np.argmax(aps)) if aps and max(aps) > 0 else None
+        files = sorted(os.listdir(work))
+        want_files = [f"model_{h['epoch']}.pth" for h in history
+                      if "ap" in h] + ["model_best.pth"] * (best is not None)
+        if sorted(want_files) != files:
+            failed.append(f"checkpoints {files}, want {sorted(want_files)}")
+        frames_dev = video.frames_dev
+        # the checkpoints against the model in memory at their epochs
+        bit_equal = {}
+        for name, p in ((f"model_{history[-1]['epoch']}.pth", passes[-1]),
+                        ("model_best.pth",
+                         passes[best] if best is not None else None)):
+            if p is None:
+                continue
+            fresh = SimplePose(**MODEL, fused_eval=True, device="cpu")
+            fresh.load_state_dict(read_weights(f"{work}/{name}",
+                                               "SimplePose"))
+            model.load_state_dict(p["state"])
+            bit_equal[name] = bool(torch.equal(
+                eval_heatmaps(fresh.cuda(), frames_dev, ds.data),
+                eval_heatmaps(model, frames_dev, ds.data)))
+        log(f"{label}: checkpoints {files}; heatmaps of 32 samples from "
+            f"the file bit-equal to the model in memory: {bit_equal}")
+        if not all(bit_equal.values()) or "model_best.pth" not in bit_equal:
+            failed.append(f"checkpoints vs memory {bit_equal}")
+        # one more epoch of a fresh trainer, profiled
+        _, trainer = pt.build_trainer(cfg, ds, seed, None)
+        idx = np.arange(len(ds))
+        _, idle = profile_call(
+            lambda: trainer.retrain(ds.data, frames_dev, idx, 1,
+                                    (ds.data.width, ds.data.height)),
+            f"{label} epoch (batch {PRETRAIN_TRAIN['BATCH_SIZE']}, "
+            f"{per_epoch} steps)")
+        del trainer
+        out["resident"] = {
+            "epochs": len(history), "steps": steps, "train_s": train_s,
+            "ms_per_step": warm, "epoch_wall_s": [h["wall_s"]
+                                                  for h in history],
+            "lr": [h["lr"] for h in history], "loss": losses,
+            "acc": [h["acc"] for h in history],
+            "validate": [{k: p[k] for k in ("ap", "wall_s")}
+                         for p in passes],
+            "best_epoch": history[[i for i, h in enumerate(history)
+                                   if "ap" in h][best]]["epoch"]
+            if best is not None else None,
+            "checkpoints_bit_equal": bit_equal, "idle_share": idle,
+            "launches": counts}
+
+        # ---- the streaming branch ------------------------------------------
+        sroot, sann = make_synthetic_multivideo(
+            f"{tmp}/multi", seed=seed, **PRETRAIN_STREAM_SET)
+        scfg = Cfg(copy.deepcopy(PRETRAIN_CFG))
+        scfg.DATASET.TRAIN.update(ROOT=sroot, ANN=sann)
+        scfg.TRAIN.update(END_EPOCH=PRETRAIN_STREAM_EPOCHS, LR_STEP=[])
+        scfg.TRAIN.pop("DPG_MILESTONE")
+        sopt = argparse.Namespace(**dict(vars(opt), work_dir=f"{tmp}/stream",
+                                         snapshot=PRETRAIN_STREAM_EPOCHS))
+        modes = []
+
+        def noted(method):
+            def run(self, *a, **kw):
+                modes.append(method.__name__)
+                return method(self, *a, **kw)
+            return run
+        with CallLog() as calls, \
+                patched(Retrainer, "retrain", noted), \
+                patched(Retrainer, "retrain_streaming", noted):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, shistory = pt.train(scfg, sopt)
+            torch.cuda.synchronize()
+            stream_s = time.perf_counter() - t0
+            scounts = launch_counts()
+        sds = build_dataset(scfg.DATASET.TRAIN)
+        train_warps = [t for k, t in calls.host_warps
+                       if k <= PRETRAIN_TRAIN["BATCH_SIZE"]]
+        warp_ms = 1e3 * statistics.median(train_warps) if train_warps \
+            else None
+        log(f"{label}, streaming branch: {len(sds)} samples of "
+            f"{len(np.unique(sds.data.frame_sizes, axis=0))} frame sizes, "
+            f"{len(shistory)} epochs in {stream_s:.2f} s ({modes}); losses "
+            f"{[h['loss'] for h in shistory]}; host warp "
+            f"{len(train_warps)} batches, median {warp_ms} ms each (host "
+            f"clock); launches {scounts}")
+        if not (sds.data.mixed_sizes and modes == ["retrain_streaming"]
+                * PRETRAIN_STREAM_EPOCHS and scounts["rot_warp_crop"] == 0
+                and np.isfinite([h["loss"] for h in shistory]).all()):
+            failed.append(f"streaming branch: modes {modes}, launches "
+                          f"{scounts}, losses {shistory}")
+        _, strainer = pt.build_trainer(scfg, sds, seed, None)
+        streamer = CropStreamer(sds.data, sds.frame_store(),
+                                strainer.input_size, strainer.aug,
+                                sds.joint_pairs, strainer.batch_size,
+                                seed=seed)
+        _, sidle = profile_call(
+            lambda: strainer.retrain_streaming(streamer, np.arange(len(sds)),
+                                               1),
+            f"{label} streamed epoch")
+        del strainer, streamer
+        out["streaming"] = {
+            "samples": len(sds), "epochs": len(shistory),
+            "wall_s": stream_s, "loss": [h["loss"] for h in shistory],
+            "host_warp_ms_per_batch": warp_ms, "idle_share": sidle,
+            "launches": scounts}
+
+        # ---- jrdbpose_train's guard ------------------------------------------
+        try:
+            jrdbpose_train.check_jrdb(cfg)
+            failed.append("jrdbpose_train accepted a Posetrack21 set")
+        except AssertionError as e:
+            log(f"jrdbpose_train refuses a Posetrack21 set: {e}")
+
+        # ---- evaluation --------------------------------------------------------
+        best_path = f"{work}/model_best.pth"
+        if best is not None:
+            emodel = poseestimator_eval.load_model(cfg, best_path)
+            evals = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                res, kpt_json = poseestimator_eval.validate(cfg, emodel,
+                                                            "TEST")
+                torch.cuda.synchronize()
+                evals.append((time.perf_counter() - t0, launch_counts()))
+            os.makedirs(f"{tmp}/eval", exist_ok=True)
+            with open(f"{tmp}/eval/predicted_kpt_TEST.json", "w") as f:
+                json.dump(kpt_json, f)
+            with open(f"{tmp}/eval/predicted_kpt_TEST.json") as f:
+                written = json.load(f)
+            n = len(ds)
+            ecounts = evals[0][1]
+            log(f"poseestimator_eval.validate on model_best.pth: AP "
+                f"{res['AP']:.4f} (validate_gt's {aps[best]:.4f}), AP.5 "
+                f"{res['AP .5']:.4f}; {n} samples in {evals[0][0]:.3f} s "
+                f"cold, {evals[1][0]:.3f} s warm ({n / evals[1][0]:.1f} "
+                f"samples/s, the annotation and frames read from disk "
+                f"included); launches {ecounts}")
+            if res["AP"] != aps[best]:
+                failed.append(f"eval AP {res['AP']} != validate_gt's "
+                              f"{aps[best]}")
+            if len(written) != n or not all(
+                    np.isfinite(e["OKS"]) for e in written):
+                failed.append(f"predicted_kpt_TEST.json: {len(written)} "
+                              f"entries for {n} samples")
+            if ecounts != want_pass:
+                failed.append(f"eval launches {ecounts}")
+            out["eval"] = {"ap": res["AP"], "wall_s": evals[1][0],
+                           "samples_per_s": n / evals[1][0],
+                           "launches": ecounts}
+            del emodel
+
+        # ---- the AE ------------------------------------------------------------
+        wb_train = Wholebody(f"{root}/{ann}", "Posetrack21")
+        wb_val = Wholebody(f"{sroot}/{sann}", "Posetrack21")
+        aopt = ae_cli.parse_args([
+            "--ann_train", f"{root}/{ann}", "--ann_val", f"{sroot}/{sann}",
+            "--epochs", str(AE_PRETRAIN_EPOCHS),
+            "--work_dir", f"{tmp}/ae/Hybrid"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ae, ae_log, ae_best = ae_cli.train_ae(aopt, wb_train.features,
+                                              wb_val.features)
+        torch.cuda.synchronize()
+        ae_s = time.perf_counter() - t0
+        ae_losses = [[e["train_loss"], e["val_loss"]] for e in ae_log]
+        log(f"wholebodyAE_train: {len(wb_train)} training and "
+            f"{len(wb_val)} validation features, {len(ae_log)} epochs in "
+            f"{ae_s:.3f} s ({1e3 * ae_s / len(ae_log):.2f} ms an epoch), "
+            f"best epoch {ae_best}, val loss {ae_log[0]['val_loss']:.6f} -> "
+            f"{ae_log[ae_best]['val_loss']:.6f}")
+        ae_path = f"{tmp}/ae/Hybrid/WholeBodyAE_zdim4.pth"
+        if not (np.isfinite(ae_losses).all() and os.path.exists(ae_path)):
+            failed.append(f"AE: losses {ae_losses}, checkpoint "
+                          f"{os.path.exists(ae_path)}")
+        out["ae"] = {"epochs": len(ae_log), "wall_s": ae_s,
+                     "ms_per_epoch": 1e3 * ae_s / len(ae_log),
+                     "best_epoch": ae_best,
+                     "val_loss": [ae_log[0]["val_loss"],
+                                  ae_log[ae_best]["val_loss"]]}
+
+        # ---- the hand-off to the AL loop -------------------------------------
+        if best is not None:
+            hcfg = Cfg(copy.deepcopy(AL_CFG))
+            for split in ("TRAIN", "EVAL"):
+                hcfg.DATASET[split].update(ROOT=root, ANN=ann)
+            hcfg.MODEL.PRETRAINED = best_path
+            hcfg.AE.PRETRAINED_ROOT = f"{tmp}/ae"
+            argv = ["--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
+                    "--video_id", "000001", "--uncertainty", "THC+WPU",
+                    "--representativeness", "Influence", "--filter",
+                    "Coreset", "--continual", "--seedfix", "--memo",
+                    "chip_smoke_handoff"]
+            os.makedirs(f"{tmp}/al")
+            with cli_workdir(hcfg, argv, f"{tmp}/al", prepare=False) as \
+                    (hcfg, hopt):
+                al = ActiveLearning(hcfg, hopt)
+            d = al.data
+            args = (d.frame_idx, d.bboxes, d.gt_keypoints,
+                    np.stack([d.bboxes[:, 0], d.bboxes[:, 1],
+                              d.bboxes[:, 2] - d.bboxes[:, 0],
+                              d.bboxes[:, 3] - d.bboxes[:, 1]], 1),
+                    d.is_prev, d.is_next)
+            model.load_state_dict(passes[best]["state"])
+            mine = ScoringEngine(model, al.engine.cfg, ae_model=ae,
+                                 chunk=al.engine.chunk)
+            reset_launch_counts()
+            with deterministic():
+                res_al = al.engine.score(al.frames_dev, *args)
+                res_mem = mine.score(al.frames_dev, *args)
+            torch.cuda.synchronize()
+            hcounts = launch_counts()
+            differ = [k for k in res_mem if not (
+                torch.equal(res_al[k], res_mem[k]) if k == "heatmaps"
+                else np.array_equal(res_al[k], res_mem[k]))]
+            log(f"hand-off: ActiveLearning loaded {best_path} and "
+                f"{ae_path}; its THC+WPU pass against the models in memory: "
+                f"{'equal' if not differ else 'apart in ' + str(differ)} "
+                f"(every output); launches of the two passes {hcounts}")
+            if differ:
+                failed.append(f"hand-off: passes apart in {differ}")
+            check_outputs(res_al, len(d))
+            out["handoff"] = {"equal": not differ, "launches": hcounts}
+            del al, mine
+        else:
+            failed.append("no validate_gt pass reached an AP above 0: no "
+                          "model_best.pth to evaluate and hand off")
+        del model, frames_dev
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return out
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -2540,6 +3180,10 @@ def check_outputs(res, n):
 
 
 def main():
+    import os
+    # deterministic cuBLAS (phases 7 and 11) needs its workspace fixed
+    # before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     try:
         import torch
     except ImportError:
@@ -2594,7 +3238,7 @@ def main():
         + json.dumps(dict(al_bf16["phase_s"], wall=al_bf16["loop_s"])))
     torch.cuda.empty_cache()
     phase("phase 7: streaming AL loop")
-    stream = phase_streaming_loop(card, seed)
+    jrdb_state, stream = phase_streaming_loop(card, seed)
     phase("phase 8: C1, the loop on the card against the CPU")
     c1 = phase_c1_loop(card, seed)
     phase("phase 9: the other strategies")
@@ -2614,8 +3258,12 @@ def main():
                       for m, v in zoo["passes"].items()})
         + "; retrain ms/step " + json.dumps(
             {m: r["ms_per_step"] for m, r in zoo["retrain"].items()}))
+    torch.cuda.empty_cache()
+    phase("phase 11: the pre-training, evaluation and AE-training paths")
+    pre = phase_pretraining(video, card, seed, init_state=jrdb_state)
+    del jrdb_state
     del video
-    phase("phase 11: result")
+    phase("phase 12: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
@@ -2641,6 +3289,10 @@ def main():
     for label, r in zoo["retrain"].items():
         other_n[f"{label.split('-')[0].lower()}_retrain"] = r["launches"]
     other_n["al_loop_hrnet"] = zoo["hrnet_loop"]["launches"]
+    # phase 7's pre-training (jrdbpose_train) and phase 11's paths
+    other_n["pretrain_jrdb_wide"] = stream["pretrain"]["launches"]
+    for key in ("resident", "streaming", "eval", "handoff"):
+        other_n[f"pretrain_{key}"] = pre[key]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
@@ -2716,6 +3368,7 @@ def main():
                     "al_loop": al, "al_loop_speedup": al_bf16,
                     "al_loop_streaming": stream, "c1_loop": c1,
                     "other_strategies": other, "other_models": zoo,
+                    "pretraining": pre,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],

@@ -591,3 +591,111 @@ def test_vl4pose_pass_runs_one_backbone_through_k1(cuda, tmp_path):
         got, want = (torch.as_tensor(r[key]).float().cpu()
                      for r in (res, plain))
         assert (got - want).abs().max() <= 1e-5 * want.abs().max(), key
+
+
+def _pretrain_cfg(root, ann, epochs):
+    """posetrack_train's config at a small width: SimplePose-R50 (its
+    bottleneck tails reach K1) with 32-wide deconvolutions at 64x64."""
+    from vatl4pose_tpu_torch.config import Cfg
+    split = {"TYPE": "Posetrack21", "ROOT": root, "ANN": ann}
+    return Cfg({
+        "DATASET": {"TRAIN": dict(split, AUG={
+            "FLIP": True, "ROT_FACTOR": 40, "SCALE_FACTOR": 0.3,
+            "NUM_JOINTS_HALF_BODY": 8, "PROB_HALF_BODY": -1}),
+            "TEST": dict(split)},
+        "DATA_PRESET": {"TYPE": "simple", "SIGMA": 2, "NUM_JOINTS": 17,
+                        "IMAGE_SIZE": [64, 64], "HEATMAP_SIZE": [16, 16]},
+        "MODEL": {"TYPE": "SimplePose", "PRETRAINED": "",
+                  "NUM_DECONV_FILTERS": [32, 32, 32], "NUM_LAYERS": 50},
+        "TRAIN": {"BATCH_SIZE": 8, "BEGIN_EPOCH": 0, "END_EPOCH": epochs,
+                  "OPTIMIZER": "adam", "LR": 1e-3, "LR_FACTOR": 0.1,
+                  "LR_STEP": [1]}})
+
+
+@pytest.mark.cuda
+def test_pretrain_resident_step_launches_k3_once(cuda, tmp_path):
+    """One epoch of posetrack_train.train on the card, frames resident: 8
+    samples at batch 8 make one optimizer step, whose crop is one K3
+    launch; the epoch's validate_gt pass launches K3 1, K1 4 and K2 1.
+    The loss is finite and model_0.pth is written."""
+    import argparse
+    from vatl4pose_tpu_torch.cli import posetrack_train
+    from vatl4pose_tpu_torch.data import make_synthetic_video
+    from vatl4pose_tpu_torch.train import retrain
+    root, ann = make_synthetic_video(str(tmp_path), num_frames=4,
+                                     num_persons=2, width=160, height=128)
+    opt = argparse.Namespace(seed=3, snapshot=1, epochs_override=None,
+                             work_dir=str(tmp_path / "w"), stream=False,
+                             launcher="none", device=None)
+    steps = []
+    step = retrain.Retrainer.train_step
+
+    def counted(self, *a, **kw):
+        steps.append(rot_warp_crop.launches)
+        return step(self, *a, **kw)
+    retrain.Retrainer.train_step = counted
+    try:
+        reset_launch_counts()
+        _, history = posetrack_train.train(_pretrain_cfg(root, ann, 1), opt)
+    finally:
+        retrain.Retrainer.train_step = step
+    torch.cuda.synchronize()
+    assert len(steps) == 1 and steps == [0]
+    assert rot_warp_crop.launches == 2        # the step's crop, the pass's
+    assert fused_bottleneck_chain.launches == 4
+    assert fused_postprocess.launches == 1
+    assert np.isfinite(history[0]["loss"]) and "ap" in history[0]
+    assert (tmp_path / "w" / "model_0.pth").exists()
+
+
+@pytest.mark.cuda
+def test_validate_through_kernels_matches_plain_versions(cuda, tmp_path):
+    """poseestimator_eval.validate on the card through K3, K1 and K2
+    against the same call with the three kernels' plain versions
+    (patched in where the pass calls them), on seeded He-scaled weights:
+    the heatmaps within 1e-3 of their max (phase 3's card-vs-CPU bound),
+    kpts and OKS within rtol 1e-4 / atol 1e-3, and the AP equal."""
+    import vatl4pose_tpu_torch.al.scoring as scoring_mod
+    import vatl4pose_tpu_torch.kernels.rot_warp as rot_warp_mod
+    import vatl4pose_tpu_torch.models.resnet as resnet_mod
+    from vatl4pose_tpu_torch.cli import poseestimator_eval
+    from vatl4pose_tpu_torch.data import make_synthetic_video
+    root, ann = make_synthetic_video(str(tmp_path), num_frames=5,
+                                     num_persons=3, width=160, height=128)
+    cfg = _pretrain_cfg(root, ann, 1)
+    model = poseestimator_eval.load_model(cfg, device="cpu")
+    model = he_scaled_(model, torch.Generator().manual_seed(9)).to(cuda)
+    kept = []
+    score = scoring_mod.ScoringEngine.score
+
+    def keeping(self, *a, **kw):
+        kw["keep_heatmaps"] = True
+        res = score(self, *a, **kw)
+        kept.append(res["heatmaps"].float().cpu())
+        return res
+    plain = ((resnet_mod, "fused_bottleneck_chain",
+              bottleneck_chain_reference),
+             (scoring_mod, "fused_postprocess", postprocess_reference),
+             (rot_warp_mod, "rot_warp_crop", rot_warp_crop_reference))
+    kernels = [getattr(m, name) for m, name, _ in plain]
+    scoring_mod.ScoringEngine.score = keeping
+    try:
+        reset_launch_counts()
+        got = poseestimator_eval.validate(cfg, model, "TEST")
+        launches = (fused_bottleneck_chain.launches,
+                    fused_postprocess.launches, rot_warp_crop.launches)
+        for m, name, ref in plain:
+            setattr(m, name, ref)
+        want = poseestimator_eval.validate(cfg, model, "TEST")
+    finally:
+        scoring_mod.ScoringEngine.score = score
+        for (m, name, _), k in zip(plain, kernels):
+            setattr(m, name, k)
+    assert launches == (4, 1, 1)
+    hm, hm_plain = kept
+    assert (hm - hm_plain).abs().max() <= 1e-3 * hm_plain.abs().max()
+    for key in ("keypoints", "OKS"):
+        np.testing.assert_allclose(np.array([e[key] for e in got[1]]),
+                                   np.array([e[key] for e in want[1]]),
+                                   rtol=1e-4, atol=1e-3, err_msg=key)
+    assert got[0]["AP"] == want[0]["AP"]

@@ -121,3 +121,56 @@ assert not leaked, leaked
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_pretraining_modules_run_without_refused_packages(tmp_path):
+    """The pre-training, evaluation and preparation modules are among those
+    imported and run behind the same finder: a combined two-video set
+    (mixed frame sizes), the AE's whole-body features, the extra datasets,
+    the loggers, and prepare_data's integrate (which reads no image, so
+    needs no cv2)."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import json, os, sys
+assert {"vatl4pose_tpu_torch.cli.posetrack_train",
+        "vatl4pose_tpu_torch.cli.jrdbpose_train",
+        "vatl4pose_tpu_torch.cli.poseestimator_eval",
+        "vatl4pose_tpu_torch.cli.wholebodyAE_train",
+        "vatl4pose_tpu_torch.cli.prepare_data",
+        "vatl4pose_tpu_torch.data.wholebody",
+        "vatl4pose_tpu_torch.data.extra_datasets",
+        "vatl4pose_tpu_torch.utils.logger"} <= set(names)
+from vatl4pose_tpu_torch.cli import prepare_data
+from vatl4pose_tpu_torch.data import (Wholebody, build_dataset,
+                                      make_synthetic_multivideo)
+from vatl4pose_tpu_torch.utils.logger import ScalarWriter, make_logger
+from vatl4pose_tpu_torch.utils.metrics import DataLogger
+tmp = sys.argv[1]
+root, ann = make_synthetic_multivideo(tmp, num_videos=2, num_frames=2,
+                                      num_persons=2, seed=3)
+ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root, "ANN": ann})
+assert ds.data.mixed_sizes and len(ds) == 8
+coco = build_dataset({"TYPE": "Mscoco", "ROOT": root, "ANN": ann})
+assert not coco.data.is_prev.any()
+assert Wholebody(os.path.join(root, ann)).features.shape == (8, 38)
+log = DataLogger()
+log.update(2.0, 3)
+assert log.avg == 2.0
+make_logger("imports", os.path.join(tmp, "log")).epochInfo(0, 0.5, 0.25)
+ScalarWriter(os.path.join(tmp, "log")).write("loss", 0.5, 0)
+al = os.path.join(tmp, "pt", "activelearning", "val")
+os.makedirs(al)
+with open(os.path.join(root, ann)) as f:
+    data = json.load(f)
+with open(os.path.join(al, "000001.json"), "w") as f:
+    json.dump(data, f)
+prepare_data.main(["integrate", "--root", os.path.join(tmp, "pt"),
+                   "--mode", "val"])
+with open(os.path.join(al, "000000_integrated_val.json")) as f:
+    assert len(json.load(f)["annotations"]) == 8
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr

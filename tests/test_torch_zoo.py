@@ -272,7 +272,11 @@ def test_registry_and_dataset_dispatch():
         reg.register_module(Toy)
     toy = build_from_cfg({"TYPE": "Toy", "a": 1}, reg, b=2)
     assert (toy.a, toy.b) == (1, 2) and reg.module_dict == {"Toy": Toy}
-    assert sorted(DATASET.module_dict) == ["JRDB2022", "Posetrack21"]
+    # the video sets and the extra datasets (data/extra_datasets.py), as
+    # the JAX package registers them
+    assert sorted(DATASET.module_dict) == [
+        "ConcatDataset", "JRDB2022", "Mpii", "Mscoco", "Mscoco_det",
+        "Posetrack21"]
     with pytest.raises(KeyError, match="not registered in dataset"):
         build_dataset({"TYPE": "COCO", "ROOT": "", "ANN": ""})
 

@@ -60,8 +60,8 @@ from ..data.pipeline import AugCfg
 from ..device import resolve_device
 from ..eval.cocoeval import evaluate_map
 from ..eval.ospa import ospa_for_loc
-from ..models import (AuxNet, build_sppe, build_wholebody_ae,
-                      state_dict_from_flax)
+from ..models import AuxNet, build_sppe, build_wholebody_ae
+from ..models.convert import load_weights, read_weights
 from ..ops import compute_hybrid
 from ..train.retrain import AETrainer, Retrainer
 from ..utils.profiling import CycleTimer
@@ -77,26 +77,6 @@ __all__ = ["ActiveLearning"]
 # (option, ROADMAP item) pairs that the port refuses
 _UNPORTED_FLAGS = (("data_parallel", "A14"), ("vis", "A13"),
                    ("vis_thc", "A13"), ("vis_wpu", "A13"))
-
-
-def _load_weights(module, state_dict, what):
-    """load_state_dict that tolerates only missing BN step counters (a
-    reference .pth may carry none)."""
-    missing, unexpected = module.load_state_dict(state_dict, strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
-    if missing or unexpected:
-        raise KeyError(f"{what}: missing {missing[:5]}, unexpected "
-                       f"{unexpected[:5]}")
-
-
-def _read_weights(path, arch):
-    """A state_dict from a reference .pth or a .pkl of numpy Flax
-    variables."""
-    if path.endswith(".pth"):
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        return state.state_dict() if hasattr(state, "state_dict") else state
-    with open(path, "rb") as f:
-        return state_dict_from_flax(pickle.load(f), arch)
 
 
 def _cpu_copy(state_dict):
@@ -288,8 +268,8 @@ class ActiveLearning:
                              "of pretrained weights, or --from_scratch")
         if not os.path.exists(path):
             raise FileNotFoundError(f"MODEL.PRETRAINED {path} does not exist")
-        _load_weights(self.model, _read_weights(path, self.cfg.MODEL.TYPE),
-                      f"MODEL.PRETRAINED {path}")
+        load_weights(self.model, read_weights(path, self.cfg.MODEL.TYPE),
+                     f"MODEL.PRETRAINED {path}")
 
     def _load_ae_pretrained(self, root):
         """root/Hybrid/WholeBodyAE_zdim{Z}: the reference's torch .pth
@@ -298,9 +278,9 @@ class ActiveLearning:
                             f"WholeBodyAE_zdim{self.cfg.AE.Z_DIM}")
         for ext in (".pth", ".pkl"):
             if os.path.exists(base + ext):
-                _load_weights(self.ae, _read_weights(base + ext,
-                                                     "WholeBodyAE"),
-                              f"AE {base + ext}")
+                load_weights(self.ae, read_weights(base + ext,
+                                                   "WholeBodyAE"),
+                             f"AE {base + ext}")
                 return
         raise FileNotFoundError(f"no pretrained AE at {base}.pth or .pkl")
 

@@ -78,6 +78,13 @@ class VideoPoseData:
     def __len__(self):
         return len(self.paths)
 
+    @property
+    def mixed_sizes(self) -> bool:
+        """True when the frames are not all of one size (a combined
+        pre-training annotation over videos of several resolutions)."""
+        return (self.frame_sizes is not None
+                and len(np.unique(self.frame_sizes, axis=0)) > 1)
+
     def item_img_wh(self) -> np.ndarray:
         """(N, 2) image (w, h) per item."""
         return self.frame_sizes[self.frame_idx]
@@ -225,9 +232,18 @@ class JRDB2022(VideoPoseDataset):
 
 
 def build_dataset(dataset_cfg: dict, check_files: bool = True):
-    """`dataset_cfg` is a plain dict with TYPE, ROOT and ANN; TYPE is
-    resolved through the DATASET registry (an unknown one raises its
-    KeyError)."""
-    cls = DATASET.get(dataset_cfg["TYPE"])
+    """`dataset_cfg` is a plain dict with TYPE, ROOT and ANN (ConcatDataset:
+    SET_LIST and NUM_JOINTS; Mscoco_det also DET_FILE); TYPE is resolved
+    through the DATASET registry (an unknown one raises its KeyError)."""
+    name = dataset_cfg["TYPE"]
+    cls = DATASET.get(name)
+    if name == "ConcatDataset":
+        return cls(set_list=dataset_cfg["SET_LIST"],
+                   num_joints=dataset_cfg["NUM_JOINTS"],
+                   check_files=check_files)
+    if name == "Mscoco_det":
+        return cls(root=dataset_cfg["ROOT"], ann_file=dataset_cfg["ANN"],
+                   det_file=dataset_cfg["DET_FILE"],
+                   check_files=check_files)
     return cls(root=dataset_cfg["ROOT"], ann_file=dataset_cfg["ANN"],
                check_files=check_files)

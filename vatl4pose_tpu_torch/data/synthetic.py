@@ -1,10 +1,12 @@
 """Synthetic video fixture: COCO-format annotations + generated frames.
 
-The port's own copy of `make_synthetic_video` from vatl4pose_tpu/data/
-synthetic.py; for a given seed it writes bit-identical files.  A video of
-F frames with P tracked "persons" (gaussian-blob bodies whose keypoints
-follow a smooth trajectory), written as .npy frames plus a PoseTrack-style
-annotation json.
+The port's own copy of `make_synthetic_video` and
+`make_synthetic_multivideo` from vatl4pose_tpu/data/synthetic.py; for a
+given seed they write bit-identical files.  A video of F frames with P
+tracked "persons" (gaussian-blob bodies whose keypoints follow a smooth
+trajectory), written as .npy frames plus a PoseTrack-style annotation
+json; the multi-video set combines several such videos of different frame
+sizes in one annotation, as a pre-training set does.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["make_synthetic_video"]
+__all__ = ["make_synthetic_video", "make_synthetic_multivideo"]
 
 # a rough 17-keypoint human template in a unit box (x, y) in [0,1]
 _TEMPLATE = np.array([
@@ -23,6 +25,61 @@ _TEMPLATE = np.array([
     [0.35, 0.22], [0.65, 0.22], [0.28, 0.38], [0.72, 0.38], [0.24, 0.52],
     [0.76, 0.52], [0.40, 0.55], [0.60, 0.55], [0.38, 0.75], [0.62, 0.75],
     [0.37, 0.95], [0.63, 0.95]], dtype=np.float32)
+
+
+def make_synthetic_multivideo(out_dir: str, num_videos: int = 2,
+                              num_frames: int = 4, num_persons: int = 2,
+                              sizes=None, seed: int = 166,
+                              img_format: str = "npy",
+                              appearance_jitter: bool = False,
+                              track_digits: int = 2) -> Tuple[str, str]:
+    """A combined training annotation over `num_videos` synthetic videos of
+    MIXED frame sizes (`sizes`, cycled), the synthetic analog of the
+    integrated PoseTrack21 pre-training json
+    (integrate_new_annotation.py:6-53); such a set takes the streaming
+    path.  Video v is `make_synthetic_video` at seed + v; with
+    `appearance_jitter` each video draws its blob size, amplitude,
+    background level and colour channel from one Generator at seed + 7777.
+    Image ids become 10000 * (v + 1) + frame, annotation ids
+    f"{v + 1}{frame + 1:02d}{person:0{track_digits}d}", so the composite-id
+    sort still groups tracks.  Returns (root_dir, combined_ann_relpath)."""
+    if sizes is None:
+        sizes = [(320, 240), (480, 360), (256, 192)]
+    images, annotations = [], []
+    jit_rng = np.random.default_rng(seed + 7777)
+    for v in range(num_videos):
+        w, h = sizes[v % len(sizes)]
+        extra = {}
+        if appearance_jitter:
+            extra = dict(blob_sigma=float(jit_rng.uniform(2.5, 6.0)),
+                         blob_amp=float(jit_rng.uniform(90.0, 170.0)),
+                         bg_level=float(jit_rng.uniform(15.0, 70.0)),
+                         channel_shift=int(jit_rng.integers(0, 3)))
+        _, ann_rel = make_synthetic_video(
+            out_dir, num_frames=num_frames, num_persons=num_persons,
+            width=w, height=h, seed=seed + v, video_id=f"{v + 1:06d}",
+            img_format=img_format, track_digits=track_digits, **extra)
+        with open(os.path.join(out_dir, ann_rel)) as f:
+            ann = json.load(f)
+        for img in ann["images"]:
+            img = dict(img)
+            img["id"] = img["image_id"] = 10000 * (v + 1) + img["frame_id"]
+            images.append(img)
+        for a in ann["annotations"]:
+            a = dict(a)
+            frame = a["image_id"] - 10000
+            a["id"] = int(f"{v + 1}{frame + 1:02d}"
+                          f"{a['id'] % 10**track_digits:0{track_digits}d}")
+            a["image_id"] = 10000 * (v + 1) + frame
+            annotations.append(a)
+    cats = [{"id": 1, "name": "person",
+             "keypoints": [f"kp{i}" for i in range(17)], "skeleton": []}]
+    rel = "annotations/combined_train.json"
+    os.makedirs(os.path.join(out_dir, "annotations"), exist_ok=True)
+    with open(os.path.join(out_dir, rel), "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": cats}, f)
+    return out_dir, rel
 
 
 def make_synthetic_video(out_dir: str, num_frames: int = 8,

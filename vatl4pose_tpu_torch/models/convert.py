@@ -1,5 +1,7 @@
 """Weights carried across: the JAX package's Flax variable tree →
-this port's state_dict.
+this port's state_dict, and the checkpoint readers the entry points share
+(`read_weights`: a reference .pth or a .pkl of Flax variables;
+`load_weights`: strict but for BN step counters).
 
 `state_dict_from_flax(variables, arch)` (arch "SimplePose", "FastPose",
 "PoseHighResolutionNet", "ShuffleResnet", "WholeBodyAE" or "auxnet")
@@ -25,7 +27,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "read_weights", "load_weights"]
 
 _DECONV_MODULES = {"deconv1", "deconv2", "deconv3"}
 _DECONV_INDEX = {"deconv1": "0", "bn_d1": "1", "deconv2": "3", "bn_d2": "4",
@@ -150,3 +152,26 @@ def state_dict_from_flax(variables, arch: str) -> Dict[str, torch.Tensor]:
         sd[f"{mod}.{stats[path[-1]]}"] = torch.from_numpy(np.array(arr))
         sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+def read_weights(path: str, arch: str) -> Dict[str, torch.Tensor]:
+    """A state_dict from a reference .pth (a state_dict or a pickled
+    module) or from a .pkl of numpy Flax variables (the JAX package's
+    checkpoints) of the architecture `arch`."""
+    if path.endswith(".pth"):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        return state.state_dict() if hasattr(state, "state_dict") else state
+    import pickle
+    with open(path, "rb") as f:
+        return state_dict_from_flax(pickle.load(f), arch)
+
+
+def load_weights(module, state_dict, what: str):
+    """load_state_dict that tolerates only missing BN step counters (a
+    reference .pth may carry none); anything else missing or unexpected
+    raises a KeyError naming `what`."""
+    missing, unexpected = module.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"{what}: missing {missing[:5]}, unexpected "
+                       f"{unexpected[:5]}")

@@ -32,6 +32,14 @@ class SimplePose(nn.Module):
             in_ch = d
         self.deconv_layers = nn.Sequential(*mods)
         self.final_layer = nn.Conv2d(deconv_dim[2], num_joints, 1)
+        # the reference's head init (simplepose.py _initialize; the JAX
+        # package's normal(0.001) kernels): trained from scratch with
+        # torch's default init instead, the maps collapse to zero and stay
+        for m in (*self.deconv_layers, self.final_layer):
+            if isinstance(m, (nn.ConvTranspose2d, nn.Conv2d)):
+                nn.init.normal_(m.weight, std=0.001)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
         self.to(resolve_device(device))
 
     @classmethod

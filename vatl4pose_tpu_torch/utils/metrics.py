@@ -1,11 +1,12 @@
-"""PCK-style heatmap accuracy (counterpart of vatl4pose_tpu/utils/
-metrics.py: `_acc_impl`, `calc_accuracy`).
+"""Training metrics: running averages and PCK-style heatmap accuracy
+(counterpart of vatl4pose_tpu/utils/metrics.py: `DataLogger`, `_acc_impl`,
+`calc_accuracy`).
 
-Parity: alphapose/utils/metrics.py:118-147,221-245 (calc_accuracy /
-calc_dist / dist_acc): heatmap-argmax accuracy with norm = heatmap
-size / 10 and threshold 0.5, a joint counted only where the label's argmax
-is at x > 1 and y > 1.  The argmax is the port's `get_max_pred` (first
-max wins).
+Parity: alphapose/utils/metrics.py:14-32 (DataLogger) and :118-147,
+221-245 (calc_accuracy / calc_dist / dist_acc): heatmap-argmax accuracy
+with norm = heatmap size / 10 and threshold 0.5, a joint counted only
+where the label's argmax is at x > 1 and y > 1.  The argmax is the port's
+`get_max_pred` (first max wins).
 """
 
 from __future__ import annotations
@@ -14,7 +15,27 @@ import torch
 
 from ..ops.heatmap import get_max_pred
 
-__all__ = ["acc_tensor", "calc_accuracy"]
+__all__ = ["DataLogger", "acc_tensor", "calc_accuracy"]
+
+
+class DataLogger:
+    """Running average of a metric: `update(value, n)` weighs a batch's
+    value by its n samples."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self):
+        self.value, self.sum, self.cnt, self.avg = 0, 0, 0, 0
+
+    def update(self, value, n=1):
+        self.value = value
+        self.sum += value * n
+        self.cnt += n
+        self._cal_avg()
+
+    def _cal_avg(self):
+        self.avg = self.sum / self.cnt
 
 
 def acc_tensor(preds, labels, thr: float = 0.5):
