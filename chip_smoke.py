@@ -100,7 +100,19 @@ Phases, each of which fails the run on error, each with its wall time:
      streaming branch on a set of three frame sizes; jrdbpose_train's
      guard; poseestimator_eval on model_best.pth; wholebodyAE_train; the
      two checkpoints handed to ActiveLearning's loaders;
- 12. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+ 12. analysis, tracking evaluation and --vis: the DUW loop with --vis
+     (and --filter None: the Coreset filter's cluster figure needs
+     matplotlib, which the card's machine lacks) through the CLI's
+     functions, checked as phase 5's, its per-round dumps (float16
+     heatmaps, ann ids, predictions) decoded on the host against the
+     round's predictions; the arrays the --vis_thc and --vis_wpu hooks
+     draw (vis_thc_inputs, vis_wpu_inputs) on a phase-3 pass on the card;
+     then on the host, over the outputs of the card's loops (phases 5, 6,
+     9, 10 and 12, kept by KEPT): summarize_result, detailed_result's
+     numbers and the LaTeX table, no figure; pose_track_eval on phase 12's
+     and phase 5's final predictions with the GT track ids, one sequence
+     and two; JRDB AP on phase 7's predictions;
+ 13. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -1490,11 +1502,64 @@ def cli_workdir(cfg, argv, tmp, prepare=True):
             shutil.rmtree(cfg.DATASET.EVAL.ROOT, ignore_errors=True)
 
 
-def run_cli_loop(cfg, argv, tmp, prepare=True):
+class KeptRuns:
+    """The card loops' outputs, kept for phase 12 after their temporary
+    directories go: each kept loop's result.json, final predictions
+    (predicted_kpt.json), the GT json the loop evaluated against
+    (GT_kpt.json), the dataset's annotation file (it has the track ids),
+    what set_dir named the run, and the absolute work dir (which lives as
+    long as the loop's phase)."""
+
+    def __init__(self):
+        self._tmp = None
+        self.loops = {}
+
+    @property
+    def root(self):
+        if self._tmp is None:
+            self._tmp = tempfile.TemporaryDirectory()
+        return Path(self._tmp.name)
+
+    def add(self, tag, cfg, opt):
+        import os
+        d = self.root / "loops" / tag
+        d.mkdir(parents=True)
+        for name in ("result.json", "predicted_kpt.json", "GT_kpt.json"):
+            shutil.copy(os.path.join(opt.work_dir, name), d / name)
+        shutil.copy(os.path.join(cfg.DATASET.EVAL.ROOT, cfg.DATASET.EVAL.ANN),
+                    d / "annotations.json")
+        self.loops[tag] = {"dir": d, "model": cfg.MODEL.TYPE,
+                           "strategy": opt.strategy, "video": opt.video_id,
+                           "timestamp": os.path.basename(opt.work_dir),
+                           "work_dir": os.path.abspath(opt.work_dir)}
+
+    def exp_tree(self, tags):
+        """The kept runs' result.json files laid out as the CLI's set_dir
+        lays them out, exp/AL_<memo>/<model>/<strategy>/<video>/<timestamp>/,
+        under one root, with the phase's tag in the video's place
+        (<video>-<tag>), so that no run overwrites another.  Returns the
+        root and each tag's (strategy, video)."""
+        root, where = self.root / "exp", {}
+        for tag in tags:
+            k = self.loops[tag]
+            video = f"{k['video']}-{tag}"
+            run = root / "AL_chip_smoke" / k["model"] / k["strategy"] \
+                / video / k["timestamp"]
+            run.mkdir(parents=True)
+            shutil.copy(k["dir"] / "result.json", run / "result.json")
+            where[tag] = (k["strategy"], video)
+        return root, where
+
+
+KEPT = KeptRuns()
+
+
+def run_cli_loop(cfg, argv, tmp, prepare=True, keep=None):
     """The port's CLI loop (cli_workdir's set-up, do_al, save_result) in
-    tmp, with the launch counters reset before do_al and read after it.
-    Returns (result.json, the cycle_times.jsonl lines, launches, launches
-    by dtype, CallLog, loop wall s)."""
+    tmp, with the launch counters reset before do_al and read after it;
+    its outputs kept under the tag `keep` (KEPT), if given.  Returns
+    (result.json, the cycle_times.jsonl lines, launches, launches by
+    dtype, CallLog, loop wall s)."""
     import os
     import torch
     from vatl4pose_tpu_torch.cli import run_active_learning as cli
@@ -1515,6 +1580,8 @@ def run_cli_loop(cfg, argv, tmp, prepare=True):
         rj = json.load(open(cli.save_result(cfg, opt, result)))
         cycles = [json.loads(line) for line in
                   open(os.path.join(opt.work_dir, "cycle_times.jsonl"))]
+        if keep:
+            KEPT.add(keep, cfg, opt)
     return rj, cycles, counts, by_dtype, calls, loop_s
 
 
@@ -1591,7 +1658,8 @@ def phase_al_loop(video, card, seed, speedup=False):
             "--synth_persons", str(VIDEO["num_persons"]),
             "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
         rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-            cfg, argv + (["--speedup"] if speedup else []), tmp)
+            cfg, argv + (["--speedup"] if speedup else []), tmp,
+            keep="p6_speedup" if speedup else "p5")
     phase_sums, table, failed = loop_report(label, rj, cycles, counts,
                                             calls, loop_s, n, rounds, card)
     passes, steps = calls.score_calls, calls.train_steps
@@ -1795,7 +1863,7 @@ def phase_streaming_loop(card, seed):
                 "chip_smoke_stream"]
         with deterministic_retrains():
             rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-                cfg, argv, tmp, prepare=False)
+                cfg, argv, tmp, prepare=False, keep="p7_stream")
         al = calls.al
         n = al.eval_len
         label = "streaming loop"
@@ -2386,7 +2454,7 @@ def phase_other_loops(video, card, seed):
                 "--synth_persons", str(VIDEO["num_persons"]),
                 "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
             rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-                cfg, argv, tmp)
+                cfg, argv, tmp, keep=f"p9_{unc.lower()}")
         phase_sums, table, failed = loop_report(
             label, rj, cycles, counts, calls, loop_s, n, rounds, card)
         passes, steps = calls.score_calls, calls.train_steps
@@ -2669,8 +2737,8 @@ def phase_hrnet_loop(video, card, seed):
             "--synth_frames", str(VIDEO["num_frames"]),
             "--synth_persons", str(VIDEO["num_persons"]),
             "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
-        rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(cfg, argv,
-                                                                   tmp)
+        rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
+            cfg, argv, tmp, keep="p10_hrnet")
     phase_sums, table, failed = loop_report(label, rj, cycles, counts,
                                             calls, loop_s, n, rounds, card)
     passes, steps = calls.score_calls, calls.train_steps
@@ -3164,6 +3232,378 @@ def phase_pretraining(video, card, seed, init_state=None):
     return out
 
 
+# phase 12: the analysis and tracking-evaluation CLIs and the --vis paths.
+# The loops whose result.json the analysis CLIs read (phases 5, 6, 9, 10
+# and 12's --vis loop) and the two whose predictions the tracking
+# evaluation reads (5 and 12)
+ANALYSIS_RUNS = ("p5", "p6_speedup", "p9_mpe", "p9_vl4pose", "p10_hrnet",
+                 "p12_vis")
+TRACKING_RUNS = ("p5", "p12_vis")
+# heatmaps decoded on the host against the round's predictions: the JAX
+# package's bounds (phase 7's), on more than this share of values
+VIS_KPTS_SHARE = 0.99
+
+
+def decode_maps(hms, bboxes):
+    """Heatmaps (N, K, h, w) decoded on the host as the post-process
+    kernel's plain version decodes them (argmax, the ±0.25 shift), through
+    the scoring crop's inverse geometry: (N, 3K) kpts as the loop's
+    predictions hold them."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.data.pipeline import eval_sample_geometry
+    from vatl4pose_tpu_torch.ops import (crop_to_image, get_max_pred,
+                                         subpixel_refine)
+    hm = torch.from_numpy(np.asarray(hms, np.float32))
+    _, bbox_crop = eval_sample_geometry(np.asarray(bboxes, np.float32),
+                                        INPUT_SIZE)
+    coords, scores = get_max_pred(hm)
+    coords = crop_to_image(subpixel_refine(hm, coords),
+                           torch.from_numpy(bbox_crop),
+                           (hm.shape[-1], hm.shape[-2]))
+    return torch.cat([coords, scores[..., None]], -1).reshape(
+        len(hm), -1).numpy()
+
+
+def phase_vis_loop(video, card, seed, al):
+    """The DUW loop with --vis through the CLI's functions, as phase 5
+    drives it (AL_CFG, phase 3's video and seeded weights, f32, 9 rounds
+    and the final evaluation) but with --filter None: under Coreset,
+    K-Means and weighted --vis draws the cluster figure (matplotlib).
+    Checked as phase 5's loop (fields, every sample queried once, K1 4x,
+    K2 1x and K3 1x a pass, K3 once a step, all f32), and every pass's
+    dumps: heatmap/Round{r}/heatmaps.npy (N, 17, 64, 48) float16, bit for
+    bit the pass's f32 heatmaps rounded to float16 (each pass's heatmaps
+    are kept on the card by a wrapper of ScoringEngine.score); its
+    ann_ids.npy the video's; prediction/Round{r}/predicted_kpt.json the
+    round's predictions, which the pass's f32 heatmaps, decoded on the
+    host (decode_maps), hold to the JAX package's bounds (rtol 2e-2, atol
+    1 px) on more than VIS_KPTS_SHARE of the values.  The share that the
+    float16 dumps decoded the same way reach is printed beside it: on
+    near-flat maps float16 rounding moves the argmax to another of
+    several near-equal maxima.  The loop's wall and split are printed
+    beside phase 5's (`al`)."""
+    import os
+    import numpy as np
+    from vatl4pose_tpu_torch.al import scoring
+    from vatl4pose_tpu_torch.config import Cfg
+    label = "AL loop --vis"
+    d = video.data
+    n = len(d)
+    rounds = len(AL_CFG["VAL"]["QUERY_RATIO"])
+    log(f"{label}: the card's machine has no matplotlib, and under the "
+        f"Coreset, K-Means and weighted filters --vis draws the cluster "
+        f"figure; this loop runs --filter None, which draws no figure")
+    with tempfile.TemporaryDirectory() as tmp:
+        model, ae = make_models(seed)
+        cfg = Cfg(copy.deepcopy(AL_CFG))
+        write_weights(tmp, cfg, model, ae)
+        del model, ae
+        argv = [
+            "--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
+            "--video_id", "000001", "--uncertainty", "THC+WPU",
+            "--representativeness", "Influence", "--filter", "None",
+            "--continual", "--seedfix", "--synthetic", "--vis", "--memo",
+            "chip_smoke", "--synth_seed", str(seed),
+            "--synth_frames", str(VIDEO["num_frames"]),
+            "--synth_persons", str(VIDEO["num_persons"]),
+            "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+        passes_hms = []
+
+        def keeping(score):
+            def wrapper(*a, **kw):
+                res = score(*a, **kw)
+                passes_hms.append(res["heatmaps"])
+                return res
+            return wrapper
+        with patched(scoring.ScoringEngine, "score", keeping):
+            rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
+                cfg, argv, tmp, keep="p12_vis")
+        phase_sums, table, failed = loop_report(
+            label, rj, cycles, counts, calls, loop_s, n, rounds, card)
+        passes, steps = calls.score_calls, calls.train_steps
+        want = {"fused_bottleneck_chain": 4 * passes,
+                "fused_postprocess": passes, "rot_warp_crop": passes + steps}
+        want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
+                      "rot_warp_crop": {"f32": passes + steps}}
+        if passes != rounds + 1 or steps == 0 or counts != want \
+                or by_dtype != want_dtype:
+            failed.append(f"launches {counts} {by_dtype}, want {want} "
+                          f"{want_dtype} for {passes} passes and {steps} "
+                          f"steps")
+        work_dir = KEPT.loops["p12_vis"]["work_dir"]
+        dumped, shares, shares16, exact = 0, [], [], []
+        for r in range(passes):
+            hm_dir = os.path.join(work_dir, "heatmap", f"Round{r}")
+            pred = os.path.join(work_dir, "prediction", f"Round{r}",
+                                "predicted_kpt.json")
+            files = [os.path.join(hm_dir, f)
+                     for f in ("heatmaps.npy", "ann_ids.npy")] + [pred]
+            if not all(os.path.exists(f) for f in files):
+                failed.append(f"Round{r}: dumps missing")
+                continue
+            dumped += sum(os.path.getsize(f) for f in files)
+            hms = np.load(files[0])
+            ann_ids = np.load(files[1])
+            entries = json.load(open(pred))
+            if hms.dtype != np.float16 or hms.shape != (n, 17) + HM_SIZE \
+                    or not np.isfinite(hms).all():
+                failed.append(f"Round{r}: heatmaps {hms.dtype} {hms.shape}")
+                continue
+            if not np.array_equal(ann_ids, d.ann_ids) \
+                    or [e["id"] for e in entries] != d.ann_ids.tolist():
+                failed.append(f"Round{r}: ann ids differ from the video's")
+                continue
+            kpts = np.array([e["keypoints"] for e in entries])
+            hm32 = passes_hms[r].float().cpu().numpy()
+            exact.append(np.array_equal(hms.view(np.uint16), hm32.astype(
+                np.float16).view(np.uint16)))
+            for maps, out in ((hm32, shares), (hms, shares16)):
+                out.append(float(np.isclose(decode_maps(maps, d.bboxes),
+                                            kpts, rtol=2e-2,
+                                            atol=1.0).mean()))
+        del passes_hms
+        log(f"{label}: {passes} passes dumped {dumped / 1e6:.1f} MB "
+            f"(heatmaps float16, ann ids, predictions); the dumps are the "
+            f"passes' f32 heatmaps rounded to float16 bit for bit: {exact}; "
+            f"each round's predicted kpts within (rtol 2e-2, atol 1 px) of "
+            f"the pass's f32 heatmaps decoded on the host: "
+            f"{[round(x, 5) for x in shares]} (bar > {VIS_KPTS_SHARE}), of "
+            f"the float16 dumps decoded: {[round(x, 5) for x in shares16]}")
+        if len(exact) != passes or not all(exact):
+            failed.append(f"dumps vs the passes' heatmaps {exact}")
+        if len(shares) != passes or min(shares) <= VIS_KPTS_SHARE:
+            failed.append(f"decoded heatmaps vs predictions {shares}")
+    log(f"{label} wall and split, s: " + json.dumps(
+        dict(phase_sums, wall=loop_s)) + "; phase 5's in this call: "
+        + json.dumps(dict(al["phase_s"], wall=al["loop_s"]))
+        + f"; {card}")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
+            "launches": counts, "phase_s": phase_sums, "rounds": table,
+            "dumped_bytes": dumped, "decoded_kpts_share": shares,
+            "decoded_dump_kpts_share": shares16}
+
+
+def phase_vis_hooks(video, seed):
+    """The arrays the --vis_thc and --vis_wpu hooks draw, on the card: a
+    phase-3 THC+WPU pass over the 512 samples with keep_heatmaps (the
+    counters reset before it and read after), then vis_thc_inputs on its
+    heatmaps and vis_wpu_inputs on its decoded keypoints with the AE on
+    the card.  Checked: vis_thc_inputs takes the samples with both
+    neighbours, their middle stack is the kept heatmaps at eval_joints bit
+    for bit and the outer ones the neighbours'; each sample's
+    reconstruction MSE from vis_wpu_inputs is the pass's WPU within 1e-5
+    relative (the JAX hook calls compute_hybrid with its defaults, the
+    scorer with ScoringConfig.hybrid_drop_ears, True for both here)."""
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.al.active_learning import (vis_thc_inputs,
+                                                        vis_wpu_inputs)
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+    d = video.data
+    model, ae = make_models(seed)
+    model.cuda()
+    ae.cuda()
+    cfg = ScoringConfig(uncertainty="THC+WPU", input_size=INPUT_SIZE)
+    engine = ScoringEngine(model, cfg, ae_model=ae, chunk=BATCH)
+    reset_launch_counts()
+    res = engine.score(*video.args, keep_heatmaps=True)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in KERNELS}
+    check_scoring_launches(counts, "the hooks' pass")
+    failed = []
+    t0 = time.perf_counter()
+    thc = vis_thc_inputs(res["heatmaps"], cfg.eval_joints, d.is_prev,
+                         d.is_next, d.ann_ids, res["unc"])
+    thc_s = time.perf_counter() - t0
+    kept = res["heatmaps"][:, list(cfg.eval_joints)].cpu().numpy()
+    both = [j for j in range(len(d)) if d.is_prev[j] and d.is_next[j]]
+    if [a for a, *_ in thc] != [int(d.ann_ids[j]) for j in both]:
+        failed.append("vis_thc_inputs took other samples than those with "
+                      "both neighbours")
+    exact = all(np.array_equal(cur, kept[j])
+                and np.array_equal(prev, kept[j - 1])
+                and np.array_equal(nxt, kept[j + 1])
+                and score == float(res["unc"][j])
+                for j, (_, prev, cur, nxt, score) in zip(both, thc))
+    if not exact:
+        failed.append("vis_thc_inputs' stacks are not the kept heatmaps")
+    t0 = time.perf_counter()
+    ann_ids, feats, recon, wpu = vis_wpu_inputs(
+        ae, res["bbox_crop"], res["kpts"], d.ann_ids, res["unc2"],
+        next(ae.parameters()).device)
+    torch.cuda.synchronize()
+    wpu_s = time.perf_counter() - t0
+    mse = np.mean((recon.astype(np.float64) - feats) ** 2, axis=1)
+    rel = np.abs(mse - wpu) / np.abs(wpu)
+    log(f"--vis_thc inputs: {len(thc)} of {len(d)} samples have both "
+        f"neighbours, stacks {thc[0][2].shape} equal to the kept heatmaps "
+        f"bit for bit: {exact} ({thc_s * 1e3:.1f} ms); --vis_wpu inputs: "
+        f"features {feats.shape}, reconstruction MSE vs the pass's WPU "
+        f"max relative {rel.max():.3e} (bar 1e-5; WPU {wpu.min():.4g}.."
+        f"{wpu.max():.4g}; {wpu_s * 1e3:.1f} ms on the card); launches "
+        f"{counts}")
+    if not (rel.max() <= 1e-5) or not np.array_equal(ann_ids, d.ann_ids):
+        failed.append(f"vis_wpu_inputs' MSE vs WPU {rel.max():.3e}")
+    del engine, model, ae, res
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("vis hooks: " + "; ".join(failed))
+    return {"launches": counts, "thc_samples": len(thc),
+            "wpu_mse_rel_err": float(rel.max()), "thc_ms": 1e3 * thc_s,
+            "wpu_ms": 1e3 * wpu_s}
+
+
+def finite(*xs):
+    import math
+    return all(math.isfinite(x) for x in xs)
+
+
+def phase_analysis(card):
+    """The analysis CLIs over the kept loops' result.json (ANALYSIS_RUNS,
+    laid out by KEPT.exp_tree): summarize_result.main, detailed_result's
+    collect, metric_json and summarize_sc, and wacv_result's latex_table,
+    no figure (the card's machine has no matplotlib).  Checked: a row a
+    strategy, every ALC finite, each run's 1001-point curve ending at its
+    loop's last AP (raw and with annotations), a LaTeX row a strategy."""
+    import os
+    from vatl4pose_tpu_torch.cli import (detailed_result, summarize_result,
+                                         wacv_result)
+    t0 = time.perf_counter()
+    root, where = KEPT.exp_tree(ANALYSIS_RUNS)
+    strategies = {s for s, _ in where.values()}
+    out = summarize_result.main(["--exp_root", str(root), "--out",
+                                 str(KEPT.root / "summary.json")])
+    rd, empty = detailed_result.collect(str(root), sc_thresh="AP .75")
+    mj = {m: detailed_result.metric_json(rd, m)
+          for m in detailed_result.DEFAULT_METRICS}
+    sc = detailed_result.summarize_sc(rd)
+    tex = wacv_result.latex_table(summarize_result.summarize(str(root)))
+    wall = time.perf_counter() - t0
+    failed = []
+    if set(out["alc"]) != strategies or set(rd) != strategies \
+            or set(sc) != strategies:
+        failed.append(f"strategies {sorted(out['alc'])}, want "
+                      f"{sorted(strategies)}")
+    alcs = [v["mean_ALC"] for v in out["alc"].values()] + [
+        x for d in rd.values() for m in detailed_result.DEFAULT_METRICS
+        for k in (f"{m}_ALC", f"{m}_ALC_ann") for x in d[k].values()] + [
+        e[f"{m}_ALC"] for m, v in mj.items() for e in v.values()]
+    if not finite(*alcs):
+        failed.append(f"an ALC is not finite: {alcs}")
+    ends = {}
+    for tag, (strategy, video) in where.items():
+        rj = json.load(open(KEPT.loops[tag]["dir"] / "result.json"))
+        got = (rd[strategy]["AP"][video][-1],
+               rd[strategy]["AP_ann"][video][-1])
+        want = (rj["performances"][-1]["AP"] * 100,
+                rj["performances_ann"][-1]["AP"] * 100)
+        ends[tag] = got
+        if any(abs(g - w) > 1e-9 for g, w in zip(got, want)):
+            failed.append(f"{tag}: curve ends {got}, last AP {want}")
+    body = tex.split(r"\midrule")[1].split(r"\bottomrule")[0]
+    rows = [line for line in body.splitlines() if line.strip()]
+    if len(rows) != len(strategies):
+        failed.append(f"LaTeX table rows {len(rows)}")
+    log(f"analysis CLIs over {len(where)} card loops' result.json, "
+        f"{len(strategies)} strategies: summarize_result ALC "
+        + json.dumps({k: round(v["mean_ALC"], 6)
+                      for k, v in out["alc"].items()})
+        + "; collect curves' last points (AP, AP ann) "
+        + json.dumps({k: [round(x, 4) for x in v] for k, v in ends.items()})
+        + f"; empty ids {empty['union']}; SC "
+        + json.dumps(sc) + f"; LaTeX rows {len(rows)}; {wall:.3f} s host; "
+        f"{card}")
+    if not os.path.exists(KEPT.root / "summary.json"):
+        failed.append("summarize_result wrote no --out")
+    if failed:
+        raise AssertionError("analysis CLIs: " + "; ".join(failed))
+    return {"wall_s": wall, "alc": {k: v["mean_ALC"]
+                                    for k, v in out["alc"].items()},
+            "curve_ends": ends, "sc": sc, "latex_rows": len(rows)}
+
+
+def tracked_sequence(tag, dest):
+    """A kept loop's final predictions with the GT track ids (the loop
+    scores GT boxes: each entry's id is its annotation's), and the GT
+    annotation file, written as dest/{gt,pred}/<tag>.json."""
+    gt = json.load(open(KEPT.loops[tag]["dir"] / "annotations.json"))
+    track = {a["id"]: a["track_id"] for a in gt["annotations"]}
+    preds = json.load(open(KEPT.loops[tag]["dir"] / "predicted_kpt.json"))
+    for e in preds:
+        e["track_id"] = track[e["id"]]
+    for sub, obj in (("gt", gt), ("pred", preds)):
+        (dest / sub).mkdir(parents=True, exist_ok=True)
+        json.dump(obj, open(dest / sub / f"{tag}.json", "w"))
+    return dest / "gt" / f"{tag}.json", dest / "pred" / f"{tag}.json"
+
+
+def phase_tracking(card):
+    """pose_track_eval over the kept loops' final predictions given the
+    GT track ids: single-sequence mode on phase 12's loop, directory mode
+    over phases 5 and 12 (the COMBINED row), and the GT fed back as
+    predictions (tests/test_tracking.py: HOTA = MOTA = IDF1 = 1, OSPA 0).
+    Then eval.jrdb_ap.average_precision_for_loc on phase 7's JRDB-wide
+    loop's final predictions against its GT, and the GT fed back (AP and
+    recall 100).  Checked: HOTA, DetA, AssA, MOTA and IDF1 finite, IDSW at
+    least 0, the AP and recall finite."""
+    from vatl4pose_tpu_torch.cli import pose_track_eval
+    from vatl4pose_tpu_torch.eval import average_precision_for_loc
+    t0 = time.perf_counter()
+    dest = KEPT.root / "tracking"
+    seqs = {tag: tracked_sequence(tag, dest) for tag in TRACKING_RUNS}
+    gt, pred = seqs["p12_vis"]
+    _, single = pose_track_eval.main(["--gt", str(gt), "--pred", str(pred),
+                                      "--out", str(dest / "single.json")])
+    per_seq, combined = pose_track_eval.main([
+        "--gt", str(dest / "gt"), "--pred", str(dest / "pred"), "--out",
+        str(dest / "dataset.json")])
+    _, self_res = pose_track_eval.main(["--gt", str(gt), "--pred", str(gt)])
+    track_s = time.perf_counter() - t0
+    failed = []
+    for name, r in [("single", single), ("COMBINED", combined)] + list(
+            per_seq.items()):
+        if not finite(*(r[k] for k in ("HOTA", "DetA", "AssA", "MOTA",
+                                       "IDF1"))) or r["IDSW"] < 0:
+            failed.append(f"{name}: {r}")
+    if set(per_seq) != set(TRACKING_RUNS) or combined is per_seq.get(
+            "p12_vis"):
+        failed.append(f"directory mode sequences {sorted(per_seq)}")
+    if not (abs(self_res["HOTA"] - 1) < 1e-6 and abs(self_res["MOTA"] - 1)
+            < 1e-6 and abs(self_res["IDF1"] - 1) < 1e-6
+            and self_res["OSPA"] < 1e-9):
+        failed.append(f"GT as predictions: {self_res}")
+    t1 = time.perf_counter()
+    jdir = KEPT.loops["p7_stream"]["dir"]
+    jgt = json.load(open(jdir / "GT_kpt.json"))
+    ap, rec = average_precision_for_loc(jgt, json.load(
+        open(jdir / "predicted_kpt.json")))
+    ap_gt, rec_gt = average_precision_for_loc(jgt, jgt["annotations"])
+    jrdb_s = time.perf_counter() - t1
+    if not finite(ap[-1], rec[-1]):
+        failed.append(f"JRDB AP {ap[-1]}, recall {rec[-1]}")
+    if abs(ap_gt[-1] - 100) > 1e-6 or abs(rec_gt[-1] - 100) > 1e-6:
+        failed.append(f"JRDB AP of the GT {ap_gt[-1]}, recall {rec_gt[-1]}")
+    keys = ("HOTA", "DetA", "AssA", "MOTA", "IDF1", "IDSW", "OSPA")
+    log("pose_track_eval: " + json.dumps(
+        {name: {k: r[k] for k in keys} for name, r in
+         [("p12_vis single", single), ("COMBINED p5+p12", combined),
+          ("GT as predictions", self_res)]})
+        + f"; {track_s:.3f} s host; JRDB AP of phase 7's final "
+        f"predictions ({len(jgt['annotations'])} samples): AP {ap[-1]:.4f}"
+        f", recall {rec[-1]:.4f}; the GT as predictions AP {ap_gt[-1]}, "
+        f"recall {rec_gt[-1]}; {jrdb_s:.3f} s host; {card}")
+    if failed:
+        raise AssertionError("tracking evaluation: " + "; ".join(failed))
+    return {"tracking_s": track_s, "jrdb_ap_s": jrdb_s,
+            "single": {k: single[k] for k in keys},
+            "combined": {k: combined[k] for k in keys},
+            "jrdb_ap": ap[-1], "jrdb_recall": rec[-1]}
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -3262,8 +3702,18 @@ def main():
     phase("phase 11: the pre-training, evaluation and AE-training paths")
     pre = phase_pretraining(video, card, seed, init_state=jrdb_state)
     del jrdb_state
+    torch.cuda.empty_cache()
+    phase("phase 12: analysis, tracking evaluation and --vis")
+    vis = {"loop": phase_vis_loop(video, card, seed, al),
+           "hooks": phase_vis_hooks(video, seed)}
     del video
-    phase("phase 12: result")
+    t12 = time.perf_counter()
+    vis["analysis"] = phase_analysis(card)
+    vis["tracking"] = phase_tracking(card)
+    vis["host_s"] = time.perf_counter() - t12
+    log(f"phase 12, the analysis CLIs, pose_track_eval and JRDB AP: "
+        f"{vis['host_s']:.3f} s on the host ({card})")
+    phase("phase 13: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
@@ -3293,6 +3743,9 @@ def main():
     other_n["pretrain_jrdb_wide"] = stream["pretrain"]["launches"]
     for key in ("resident", "streaming", "eval", "handoff"):
         other_n[f"pretrain_{key}"] = pre[key]["launches"]
+    # phase 12's paths: the --vis loop and the hooks' scoring pass
+    other_n["al_loop_vis"] = vis["loop"]["launches"]
+    other_n["vis_hooks_scoring"] = vis["hooks"]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
@@ -3368,7 +3821,7 @@ def main():
                     "al_loop": al, "al_loop_speedup": al_bf16,
                     "al_loop_streaming": stream, "c1_loop": c1,
                     "other_strategies": other, "other_models": zoo,
-                    "pretraining": pre,
+                    "pretraining": pre, "analysis_and_vis": vis,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],

@@ -216,9 +216,7 @@ def test_cli_main_synthetic_writes_result(tmp_path, monkeypatch):
         assert (p.parent / "al_state.pkl").exists()
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("data_parallel", "A14"), ("vis", "A13"), ("vis_thc", "A13"),
-    ("vis_wpu", "A13")])
+@pytest.mark.parametrize("flag,item", [("data_parallel", "A14")])
 def test_unported_options_raise(setup, flag, item):
     tmp, cfg = setup
     with pytest.raises(NotImplementedError, match=item):

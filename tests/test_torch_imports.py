@@ -1,6 +1,6 @@
 """Every module of vatl4pose_tpu_torch imports without JAX, Flax, the JAX
-package, sklearn, PyYAML, matplotlib or cv2: the machine with the card has
-none of them."""
+package, sklearn, PyYAML, matplotlib, cv2 or PIL: the machine with the card
+has none of them."""
 
 import subprocess
 import sys
@@ -8,7 +8,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 REFUSED = ("jax", "jaxlib", "flax", "vatl4pose_tpu", "sklearn", "yaml",
-           "matplotlib", "cv2")
+           "matplotlib", "cv2", "PIL")
 
 _SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -45,7 +45,7 @@ def test_port_imports_without_refused_packages():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     # the package, its subpackages and every module in them
-    assert int(out.stdout.split()[-1]) >= 40
+    assert int(out.stdout.split()[-1]) >= 78
 
 
 def test_refusing_finder_refuses():
@@ -167,6 +167,86 @@ prepare_data.main(["integrate", "--root", os.path.join(tmp, "pt"),
                    "--mode", "val"])
 with open(os.path.join(al, "000000_integrated_val.json")) as f:
     assert len(json.load(f)["annotations"]) == 8
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_analysis_modules_run_without_refused_packages(tmp_path):
+    """The analysis, tracking-evaluation and visualisation modules are
+    among those imported, and their numeric paths run behind the same
+    finder: the tracking metrics and JRDB AP through pose_track_eval and
+    average_precision_for_loc, the result summaries, detailed_result's
+    numeric artifacts and the LaTeX table; every function that draws
+    raises ImportError there instead."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import json, os, sys
+import numpy as np
+assert {"vatl4pose_tpu_torch.eval.tracking",
+        "vatl4pose_tpu_torch.eval.jrdb_ap",
+        "vatl4pose_tpu_torch.utils.vis",
+        "vatl4pose_tpu_torch.cli.pose_track_eval",
+        "vatl4pose_tpu_torch.cli.summarize_result",
+        "vatl4pose_tpu_torch.cli.detailed_result",
+        "vatl4pose_tpu_torch.cli.wacv_result",
+        "vatl4pose_tpu_torch.cli.visualize_result",
+        "vatl4pose_tpu_torch.cli.convert_to_eps"} <= set(names)
+from vatl4pose_tpu_torch.al.al_metric import plot_learning_curves
+from vatl4pose_tpu_torch.cli import (convert_to_eps, detailed_result,
+                                     pose_track_eval, summarize_result,
+                                     wacv_result)
+from vatl4pose_tpu_torch.eval import average_precision_for_loc
+from vatl4pose_tpu_torch.utils import vis
+tmp = sys.argv[1]
+rng = np.random.default_rng(0)
+images, anns = [{"id": f} for f in range(3)], []
+for f in range(3):
+    for t in range(2):
+        kp = np.ones(51)
+        kp[0::3] = rng.uniform(0, 100, 17) + 200 * t
+        kp[1::3] = rng.uniform(0, 200, 17)
+        anns.append({"id": 10 * f + t, "image_id": f, "track_id": t,
+                     "bbox": [200.0 * t, 0.0, 100.0, 200.0],
+                     "area": 2e4, "keypoints": kp.tolist()})
+gt = {"images": images, "annotations": anns}
+json.dump(gt, open(os.path.join(tmp, "gt.json"), "w"))
+_, res = pose_track_eval.main(["--gt", os.path.join(tmp, "gt.json"),
+                               "--pred", os.path.join(tmp, "gt.json")])
+assert abs(res["HOTA"] - 1) < 1e-12 and res["IDSW"] == 0
+assert res["MOTA"] == 1.0 and res["OSPA"] == 0.0
+ap, rec = average_precision_for_loc(gt, anns)
+assert ap[-1] == 100.0 and rec[-1] == 100.0
+run = os.path.join(tmp, "exp", "AL_x", "SimplePose", "S", "000001", "t")
+os.makedirs(run)
+perf = [{k: a for k in detailed_result.METRIC_KEYS} for a in (0.2, 0.6)]
+json.dump({"percentages": [0, 100], "performances": perf,
+           "performances_ann": perf, "mean_uncertaity": [2.0, 1.0],
+           "spearmanr": [], "actual_finish": 100, "finished_minerror": 50,
+           "finished_oursc": 100}, open(os.path.join(run, "result.json"), "w"))
+root = os.path.join(tmp, "exp")
+table = summarize_result.summarize(root)
+assert abs(table["S"]["mean_ALC"] - 0.4) < 1e-12
+assert "S &" in wacv_result.latex_table(table)
+rd, _ = detailed_result.collect(root)
+alc = detailed_result.metric_json(rd, "AP")["S"]["AP_ALC"]
+assert abs(alc - 0.4) < 1e-12
+for draw in (lambda: detailed_result.main(["--exp_root", root]),
+             lambda: wacv_result.alc_bar_chart(table, tmp),
+             lambda: plot_learning_curves(tmp, "v", "S", [0, 100], [1, 2]),
+             lambda: vis.visualize_wpu(tmp, 1, np.ones(38), np.ones(38), 0.),
+             lambda: vis.vis_frame_fast(np.zeros((4, 4, 3), np.uint8),
+                                        np.ones((17, 3))),
+             lambda: convert_to_eps.main(["--dir", tmp])):
+    try:
+        draw()
+        raise AssertionError("a figure was drawn without its package")
+    except ImportError:
+        pass
+assert os.path.exists(os.path.join(root, "analysis", "sc_summary.json"))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 """

@@ -36,8 +36,16 @@ The port's own design:
     and head): an AuxNet on the estimator's stride-32 feature, initialised
     from a generator seeded 318 (not Flax's PRNGKey(318) bits); one
     backbone pass feeds the head, the AuxNet and the embedding.
-  - Not ported yet, and so refused: --data_parallel (A14) and
-    --vis/--vis_thc/--vis_wpu (A13).
+  - --vis, --vis_thc and --vis_wpu as in the JAX package: --vis keeps the
+    pass's heatmaps and writes each round's heatmap/Round{r}/heatmaps.npy
+    (float16), ann_ids.npy and prediction/Round{r}/predicted_kpt.json, and
+    draws the cluster figure under the Coreset, K-Means and weighted
+    filters; --vis_thc draws each sample's 3-frame heatmap grid;
+    --vis_wpu recomputes the hybrid feature and the AE's reconstruction on
+    the device and draws them.  The arrays the two criteria's figures are
+    drawn from come from vis_thc_inputs and vis_wpu_inputs; the figures
+    need matplotlib (utils/vis.py imports it inside).
+  - Not ported yet, and so refused: --data_parallel (A14).
 
 Device work per round: one chunked forward over the whole video and the
 stage-2 scoring (al/scoring.py), the cosine product and the f32 coreset
@@ -62,7 +70,7 @@ from ..eval.cocoeval import evaluate_map
 from ..eval.ospa import ospa_for_loc
 from ..models import AuxNet, build_sppe, build_wholebody_ae
 from ..models.convert import load_weights, read_weights
-from ..ops import compute_hybrid
+from ..ops import bbox_xyxy_to_xywh, compute_hybrid
 from ..train.retrain import AETrainer, Retrainer
 from ..utils.profiling import CycleTimer
 from .al_metric import compute_corr, compute_spearmanr
@@ -72,11 +80,10 @@ from .selection import (coreset_selection, diversity_filter, fuse_thc_wpu,
                         influence_scores, kmeans_filter, minmax,
                         random_filter, rank_candidates, total_scores)
 
-__all__ = ["ActiveLearning"]
+__all__ = ["ActiveLearning", "vis_thc_inputs", "vis_wpu_inputs"]
 
 # (option, ROADMAP item) pairs that the port refuses
-_UNPORTED_FLAGS = (("data_parallel", "A14"), ("vis", "A13"),
-                   ("vis_thc", "A13"), ("vis_wpu", "A13"))
+_UNPORTED_FLAGS = (("data_parallel", "A14"),)
 
 
 def _cpu_copy(state_dict):
@@ -93,6 +100,34 @@ def _to_cpu(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_cpu(v) for v in obj)
     return obj
+
+
+def vis_thc_inputs(heatmaps, eval_joints, is_prev, is_next, ann_ids, thc):
+    """What the --vis_thc hook draws (JAX package :402-411): for each
+    sample with both neighbours, (ann id, the previous, own and next
+    sample's heatmaps at eval_joints as host float32 arrays, its THC
+    score).  heatmaps: the pass's (N, K, h, w) tensor or array."""
+    hms = torch.as_tensor(heatmaps)[:, list(eval_joints)].float().cpu()
+    hms = hms.numpy()
+    return [(int(ann_ids[j]), hms[j - 1], hms[j], hms[j + 1], float(thc[j]))
+            for j in range(len(hms)) if is_prev[j] and is_next[j]]
+
+
+@torch.no_grad()
+def vis_wpu_inputs(ae, bbox_crop, kpts, ann_ids, wpu, device):
+    """What the --vis_wpu hook draws (JAX package :412-425): the hybrid
+    feature of each sample's decoded keypoints (compute_hybrid's defaults,
+    as the JAX hook calls it) and the AE's reconstruction of it, both
+    computed on `device`; returns (ann ids, features, reconstructions,
+    WPU values) as host arrays."""
+    bb = torch.as_tensor(np.asarray(bbox_crop), dtype=torch.float32,
+                         device=device)
+    kp = torch.as_tensor(np.asarray(kpts), dtype=torch.float32,
+                         device=device)
+    feats = compute_hybrid(bbox_xyxy_to_xywh(bb), kp)
+    recon = ae(feats)
+    return (np.asarray(ann_ids), feats.cpu().numpy(), recon.cpu().numpy(),
+            np.asarray(wpu))
 
 
 class ActiveLearning:
@@ -298,12 +333,15 @@ class ActiveLearning:
              d.bboxes[:, 3] - d.bboxes[:, 1]], axis=1)
         args = (d.frame_idx, d.bboxes, d.gt_keypoints, bbox_ann_xywh,
                 d.is_prev, d.is_next)
+        vis = bool(getattr(self.opt, "vis", False))
+        keep_hms = vis or bool(getattr(self.opt, "vis_thc", False))
         with self.timer.phase("score"):
             if self.streaming:
-                res = self.engine.score_streaming(self.frame_store, *args)
+                res = self.engine.score_streaming(self.frame_store, *args,
+                                                  keep_heatmaps=keep_hms)
             else:
                 res = self.engine.score(self.frames_dev, *args,
-                                        keep_heatmaps=False)
+                                        keep_heatmaps=keep_hms)
 
         kpts = res["kpts"].astype(np.float64)          # (N, 51)
         oks = res["oks"].astype(np.float64)
@@ -349,6 +387,23 @@ class ActiveLearning:
             perf_ann = evaluate_map(kpt_json_ann, gt_dict)
             ospa_ann = ospa_for_loc(gt_dict, kpt_json_ann)
 
+        rc = f"Round{self.round_cnt}"
+        if vis:
+            # per-round artifact dumps (ActiveLearning.py:416-429, 448-453)
+            hm_dir = os.path.join(self.work_dir, "heatmap", rc)
+            os.makedirs(hm_dir, exist_ok=True)
+            # cast where the heatmaps are (on the card: half the copy off
+            # it); the same round-to-nearest-even as the JAX package's
+            # host cast
+            np.save(os.path.join(hm_dir, "heatmaps.npy"),
+                    res["heatmaps"].to(torch.float16).cpu().numpy())
+            np.save(os.path.join(hm_dir, "ann_ids.npy"), d.ann_ids)
+            pred_dir = os.path.join(self.work_dir, "prediction", rc)
+            os.makedirs(pred_dir, exist_ok=True)
+            with open(os.path.join(pred_dir, "predicted_kpt.json"),
+                      "w") as f:
+                json.dump(kpt_json, f)
+
         self.percentage.append(len(labeled) / self.eval_len * 100)
         self.performance.append(perf)
         self.performance_ann.append(perf_ann)
@@ -387,6 +442,25 @@ class ActiveLearning:
             self.corr_list.append(compute_corr(corr_dict, oks_dict))
             self._log(f"[Evaluation] Spearmanr: {self.spearmanr_list[-1]:.3f}"
                       f", Correlation: {self.corr_list[-1]:.3f}")
+
+        # the criteria's figures (ActiveLearning.py:360-363 vis_thc,
+        # :383-385 vis_wpu), per sample under work_dir
+        if getattr(self.opt, "vis_thc", False) and "THC" in self.uncertainty:
+            from ..utils.vis import visualize_thc
+            thc_dir = os.path.join(self.work_dir, "vis_thc", rc)
+            for ann_id, prev, cur, nxt, thc in vis_thc_inputs(
+                    res["heatmaps"], self.eval_joints, d.is_prev, d.is_next,
+                    d.ann_ids, unc):
+                visualize_thc(thc_dir, ann_id, prev, cur, nxt, thc)
+        if getattr(self.opt, "vis_wpu", False) and "WPU" in self.uncertainty:
+            from ..utils.vis import visualize_wpu
+            wpu_dir = os.path.join(self.work_dir, "vis_wpu", rc)
+            ann_ids, feats, recon, wpu = vis_wpu_inputs(
+                self.ae, res["bbox_crop"], kpts, d.ann_ids,
+                unc2 if thcwpu else unc, self.device)
+            for j in range(self.eval_len):
+                visualize_wpu(wpu_dir, int(ann_ids[j]), feats[j], recon[j],
+                              float(wpu[j]))
 
         combine_weight = float(gc[unlabeled_idx].sum()) if unlabeled_idx else 0.0
 
@@ -444,6 +518,18 @@ class ActiveLearning:
                                             res.get("embeddings"),
                                             combine_weight, unlabeled_idx)
 
+        # the cluster / coreset selection figure (pltcluster_and_save /
+        # pltcoreset_and_save, ActiveLearning.py:551-617, behind a
+        # hard-coded False there; under --vis here, as in the JAX package)
+        if (vis and self.filter in ("Coreset", "K-Means", "weighted")
+                and res.get("embeddings") is not None
+                and res["embeddings"].shape[1] > 1 and len(query_list)):
+            from ..utils.vis import plot_embedding_selection
+            plot_embedding_selection(
+                os.path.join(self.work_dir, "cluster"), res["embeddings"],
+                query_list, f"{self.filter}_round{self.round_cnt}",
+                weight=np.asarray(total_score) if len(total_score) else None)
+
         # ---- tl/tu/fl/fu ------------------------------------------------------
         thresh = self.finish_acc + self.finish_margin
         uset = set(unlabeled_idx)
@@ -456,7 +542,6 @@ class ActiveLearning:
         fu = [i for i in range(self.eval_len)
               if i in uset and oks[i] < thresh]
         assert self.eval_len == len(tl) + len(tu) + len(fl) + len(fu)
-        rc = f"Round{self.round_cnt}"
         self.true_labeled_dict[rc] = tl
         self.true_unlabeled_dict[rc] = tu
         self.false_labeled_dict[rc] = fl

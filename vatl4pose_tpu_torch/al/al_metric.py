@@ -1,19 +1,22 @@
-"""AL run metrics: ALC and the correlations between a criterion and OKS
-(the port's own copy of vatl4pose_tpu/al/al_metric.py).
+"""AL run metrics: ALC, the correlations between a criterion and OKS, and
+the learning-curve figure (the port's own copy of
+vatl4pose_tpu/al/al_metric.py).
 
 compute_alc is active_learning/al_metric.py's sklearn `metrics.auc` on
 0.01x scaled axes, written here as the same trapezoid rule in numpy so
-that the port needs no sklearn.  The learning-curve plots wait for the
-analysis CLIs (ROADMAP A13).
+that the port needs no sklearn.  plot_learning_curves imports matplotlib
+inside.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Sequence
 
 import numpy as np
 
-__all__ = ["auc", "compute_alc", "compute_spearmanr", "compute_corr"]
+__all__ = ["auc", "compute_alc", "compute_spearmanr", "compute_corr",
+           "plot_learning_curves"]
 
 
 def auc(x, y) -> float:
@@ -53,3 +56,26 @@ def compute_spearmanr(unc_dict: Dict, oks_dict: Dict) -> float:
 def compute_corr(unc_dict: Dict, oks_dict: Dict) -> float:
     unc, oks = _paired(unc_dict, oks_dict)
     return float(np.corrcoef(unc, oks)[0, 1])
+
+
+def plot_learning_curves(savedir: str, video_id: str, strategy: str,
+                         percentages, performances, ann: bool = False) -> str:
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots()
+    ax.set_xlabel("Label Percentage (%)")
+    ax.set_ylabel("AP Performance (%)")
+    ax.set_title(f"Active Learning Result on {video_id}")
+    ax.grid()
+    ax.set_xlim(0, 100)
+    ax.set_ylim(0, 100)
+    ax.plot(percentages, performances, label=strategy, color="blue")
+    ax.legend(loc=0)
+    fig.tight_layout()
+    suffix = "_ann" if ann else ""
+    path = os.path.join(savedir,
+                        f"learning_curve_{strategy}_{video_id}{suffix}.png")
+    fig.savefig(path)
+    plt.close(fig)
+    return path

@@ -17,9 +17,12 @@ drops its 'highest' matmul precision; without it every f32 product is
 full f32 (parity mode).  A video whose frames exceed
 VAL.HBM_FRAME_BUDGET_GB streams from host RAM.  --optimize searches
 VAL.UNC_LAMBDA for the best mean ALC (al/optuna_lite.py, TPE or a grid;
-`run_study` needs no matplotlib, `optimize_alc` adds the two plots).  Not
-ported yet, and so refused: --data_parallel (A14),
---vis/--vis_thc/--vis_wpu (A13).
+`run_study` needs no matplotlib, `optimize_alc` adds the two plots).
+--vis writes each round's heatmaps (float16), ann ids and predictions
+under the work dir and, under the Coreset, K-Means and weighted filters,
+the cluster figure; --vis_thc and --vis_wpu draw the two criteria's
+figures (matplotlib).  Not ported yet, and so refused: --data_parallel
+(A14).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Object Keypoint Similarity (counterpart of vatl4pose_tpu/ops/oks.py):
-`compute_oks` on tensors, `oks_matrix` in numpy on the host for OSPA, and
-the sigma constants."""
+`compute_oks` on tensors, `oks_matrix` in numpy on the host for OSPA,
+`oks_kpts_matrix` for the occlusion-level OSPA2 of the tracking evaluation,
+and the sigma constants."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ JRDB_SIGMAS = np.array(
 JRDB_VARS = (JRDB_SIGMAS * 2) ** 2
 
 __all__ = ["COCO_SIGMAS", "COCO_VARS", "JRDB_SIGMAS", "JRDB_VARS",
-           "compute_oks", "oks_matrix"]
+           "compute_oks", "oks_matrix", "oks_kpts_matrix"]
 
 
 def compute_oks(pred_kpts, gt_kpts, bbox_xywh, variances=None):
@@ -103,3 +104,22 @@ def oks_matrix(gt_kpts, gt_bbox_xywh, gt_area, pred_kpts, variances=None,
             e = e[:, vg[j] > 0]
         out[j] = np.sum(np.exp(-e), axis=1) / e.shape[1]
     return out
+
+
+def oks_kpts_matrix(gt_kpts, gt_area, pred_kpts, variances=None):
+    """(G, P, K) per-keypoint OKS terms over ALL joints in float64 numpy
+    (JRDB_toolkit/posetrack/datasets/jrdbpose.py:611-619: e = d²/vars/body/2,
+    exp(-e), no visibility gating: 'JRDB assumption: all joints valid')."""
+    if variances is None:
+        variances = JRDB_VARS
+    var = np.asarray(variances, np.float64)
+    g = np.asarray(gt_kpts, np.float64)
+    d = np.asarray(pred_kpts, np.float64)
+    xg, yg = g[:, 0::3], g[:, 1::3]
+    xd, yd = d[:, 0::3], d[:, 1::3]
+    area = np.asarray(gt_area, np.float64)
+    dx = xd[None, :, :] - xg[:, None, :]
+    dy = yd[None, :, :] - yg[:, None, :]
+    e = (dx ** 2 + dy ** 2) / var[None, None, :] \
+        / (area[:, None, None] * 2.0)
+    return np.exp(-e)
