@@ -112,11 +112,35 @@ Phases, each of which fails the run on error, each with its wall time:
      numbers and the LaTeX table, no figure; pose_track_eval on phase 12's
      and phase 5's final predictions with the GT track ids, one sequence
      and two; JRDB AP on phase 7's predictions;
- 13. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+ 13. data parallel (parallel/, --data_parallel), two gloo ranks sharing
+     the one card (NCCL puts no two ranks on one device), at phase 3's
+     width and video: (1) ActiveLearning with --data_parallel and no
+     WORLD_SIZE has no mesh, and its round 0 is bit-identical to a round
+     without the flag (both on deterministic algorithms; phase 5's, on
+     cuDNN's default ones, is printed beside); (2) one Retrainer(mesh=) step
+     of 120 (60 a rank, the last 20 rows padding, all on rank 1) against
+     the one-process step from the same weights (tests/test_sharding.py:
+     113's bounds: loss rel 1e-3 here, every gradient at cosine > 0.9999
+     and norm rel 1e-2 or, past that, no further from an f64 step's than
+     twice the one-process f32 step's, BN statistics rel 1e-4, the ranks'
+     parameters bit-identical), the step's and the gradient all-reduce's
+     ms; (3) a
+     THC+WPU pass of ScoringEngine(mesh=) against the one-process pass at
+     rtol 2e-4, atol 1e-5 (a sample whose argmax flips between two near-
+     equal maxima apart from what follows the decode), K1 4, K2 1 and K3
+     1 on each rank, samples/s; (4) phase 5's DUW loop, its rounds cut to
+     3, on phase 3's video files laid out as a PoseTrack21 video, under
+     `torchrun --standalone --nproc_per_node 2` with
+     --data_parallel (this script with --dp-loop-rank as each rank),
+     checked as phase 5's, every file written by rank 0, round 0's pass
+     against step 1's as step 3 holds it, every rank's final estimator
+     and AE bit-identical to rank 0's;
+ 14. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+and prints no result.  `--dp-loop-rank SPEC` runs one rank of phase 13's
+loop (torchrun starts it).
 """
 
 from __future__ import annotations
@@ -1087,12 +1111,13 @@ def profile_call(fn, label, top=12, show=("rot_warp", "heatmap_postprocess")):
 
 
 def make_retrainer(model, video, device=None, seed=166,
-                   model_type="SimplePose"):
+                   model_type="SimplePose", mesh=None):
     from vatl4pose_tpu_torch.data import AugCfg
     from vatl4pose_tpu_torch.train import Retrainer
     return Retrainer(model, RETRAIN, model_type, input_size=INPUT_SIZE,
                      hm_size=HM_SIZE, sigma=2.0, aug=AugCfg(**AUG),
-                     joint_pairs=video.joint_pairs, seed=seed, device=device)
+                     joint_pairs=video.joint_pairs, seed=seed, mesh=mesh,
+                     device=device)
 
 
 def train_batch(video, n, rng):
@@ -3604,6 +3629,672 @@ def phase_tracking(card):
             "jrdb_ap": ap[-1], "jrdb_recall": rec[-1]}
 
 
+# ---- phase 13: data parallel over two gloo ranks on the one card ---------
+# Two ranks share the card (NCCL will not put two ranks on one device, so
+# the port's backend rule picks gloo): what they measure is what the
+# collectives cost on this card, not a scale-out rate.
+DP_RANKS = 2
+DP_VALID = 100          # of the step's batch of RETRAIN["BATCH_SIZE"]
+DP_TIMED = 5            # timed steps and all-reduces after the checked one
+# the loop of step 4 is phase 5's with one cut: QUERY_RATIO's 9 rounds ->
+# 3 (round 0 as phase 5's, then 10% and the rest), to keep the phase
+# inside about 3 minutes (9 rounds took 145 s on two ranks sharing the
+# card, and the whole script runs near the 1200-s limit)
+DP_QUERY_RATIO = (0.05, 0.1, 1.0)
+# the globals a rank process takes from its parent (a rehearsal on the
+# CPU shrinks them)
+DP_CONSTS = ("MODEL", "INPUT_SIZE", "HM_SIZE", "BATCH", "RETRAIN", "AUG",
+             "AL_CFG", "VIDEO", "DP_VALID", "DP_QUERY_RATIO")
+
+
+def _dp_spec(device, **kw):
+    return dict(kw, device=str(device),
+                consts={k: globals()[k] for k in DP_CONSTS})
+
+
+def _dp_adopt(spec):
+    """In a rank process: the parent's constants, and the parity flags."""
+    import torch
+    globals().update(spec["consts"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return torch.device(spec["device"])
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _digest(module):
+    """sha256 of every parameter and buffer, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_video(spec, dev):
+    """Phase 3's video rebuilt from its files, its frames on `dev`."""
+    import types
+    import numpy as np
+    import torch
+    from vatl4pose_tpu_torch.data import build_dataset
+    ds = build_dataset({"TYPE": "Posetrack21", "ROOT": spec["root"],
+                        "ANN": spec["ann"]})
+    d = ds.data
+    frames_dev = torch.from_numpy(ds.load_frames()).to(dev)
+    bbox_ann = np.stack([d.bboxes[:, 0], d.bboxes[:, 1],
+                         d.bboxes[:, 2] - d.bboxes[:, 0],
+                         d.bboxes[:, 3] - d.bboxes[:, 1]], 1)
+    return types.SimpleNamespace(
+        data=d, joint_pairs=ds.joint_pairs, frames_dev=frames_dev,
+        args=(frames_dev, d.frame_idx, d.bboxes, d.gt_keypoints, bbox_ann,
+              d.is_prev, d.is_next))
+
+
+def _dp_step_batch(video, seed):
+    """The checked step's batch: RETRAIN's 120 samples, the last 20 rows
+    padding (`valid` False), so the last rank holds every padded row."""
+    import numpy as np
+    batch = train_batch(video, RETRAIN["BATCH_SIZE"],
+                        np.random.default_rng(seed + 13))
+    batch[4][DP_VALID:] = False
+    return batch
+
+
+def _dp_rank(rank, spec):
+    """One of the DP_RANKS ranks of steps 2 and 3 (spawned, a FileStore):
+    the Retrainer(mesh=) step on this rank's block of the batch, then the
+    step and the gradient all-reduce timed; a THC+WPU pass of
+    ScoringEngine(mesh=), then timed.  The counters are reset before the
+    checked step and before the checked pass and read after each."""
+    import torch
+    import torch.distributed as dist
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.kernels import reset_launch_counts
+    from vatl4pose_tpu_torch.parallel import (Sharding, all_reduce_grads,
+                                              make_mesh)
+    dev = _dp_adopt(spec)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(spec["store"], DP_RANKS), rank=rank,
+        world_size=DP_RANKS)
+    mesh = make_mesh(DP_RANKS, device=dev)
+    group = mesh.group("data")
+    video = _dp_video(spec, dev)
+    out = {"device": str(mesh.device), "backend": dist.get_backend()}
+
+    def timed(fn):
+        dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        dist.barrier()
+        return (time.perf_counter() - t0) * 1e3
+
+    # step 2: the train step
+    model = make_models(spec["seed"])[0].to(dev).train()
+    tr = make_retrainer(model, video, device=dev, mesh=mesh)
+    local = [Sharding(mesh, ("data",)).local(a)
+             for a in _dp_step_batch(video, spec["seed"])]
+    _sync(dev)
+    reset_launch_counts()
+    stats = tr.train_step(video.frames_dev, *local)
+    _sync(dev)
+    out["step_launches"] = launch_counts()
+    out["step_valid"] = int(local[4].sum())
+    out["loss"] = stats[0].item()
+    out["grads"] = {k: p.grad.double().cpu()
+                    for k, p in model.named_parameters()} if rank == 0 \
+        else None
+    out["bn"] = {k: v.double().cpu() for k, v in model.state_dict().items()
+                 if "running_" in k} if rank == 0 else None
+    out["digest"] = _digest(model)
+    out["step_ms"] = statistics.median(
+        timed(lambda: tr.train_step(video.frames_dev, *local))
+        for _ in range(DP_TIMED))
+    out["all_reduce_ms"] = statistics.median(
+        timed(lambda: all_reduce_grads(model.parameters(), group))
+        for _ in range(DP_TIMED))
+    out["grad_bytes"] = sum(p.grad.numel() * p.grad.element_size()
+                            for p in model.parameters())
+    del model, tr
+
+    # step 3: the scoring pass
+    model, ae = (m.to(dev) for m in make_models(spec["seed"]))
+    engine = ScoringEngine(model, ScoringConfig(uncertainty="THC+WPU",
+                                                input_size=INPUT_SIZE),
+                           ae_model=ae, chunk=BATCH, device=dev, mesh=mesh)
+    _sync(dev)
+    reset_launch_counts()
+    res = engine.score(*video.args)
+    _sync(dev)
+    out["pass_launches"] = launch_counts()
+    res["heatmaps"] = res["heatmaps"].float().cpu()
+    out["scores"] = res
+    out["pass_ms"] = statistics.median(
+        timed(lambda: engine.score(*video.args, keep_heatmaps=False))
+        for _ in range(3))
+    torch.save(out, f"{spec['out']}_{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _dp_one_process(video, seed):
+    """Steps 2 and 3 in this process on the card, from the same weights:
+    the step on the whole batch (loss, gradients, BN statistics, ms) and
+    the pass (its scores)."""
+    import torch
+    dev = video.frames_dev.device
+    model = make_models(seed)[0].to(dev).train()
+    tr = make_retrainer(model, video, device=dev)
+    batch = _dp_step_batch(video, seed)
+    loss = tr.train_step(video.frames_dev, *batch)[0].item()
+    ref = {"loss": loss,
+           "grads": {k: p.grad.double().cpu()
+                     for k, p in model.named_parameters()},
+           "bn": {k: v.double().cpu() for k, v in model.state_dict().items()
+                  if "running_" in k}}
+    times = []
+    for _ in range(DP_TIMED):
+        _sync(dev)
+        t0 = time.perf_counter()
+        tr.train_step(video.frames_dev, *batch)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ref["step_ms"] = statistics.median(times)
+    # the exact step (f64), to tell the f32 steps' rounding from a fault
+    model = make_models(seed)[0].double().to(dev).train()
+    make_retrainer(model, video, device=dev).train_step(video.frames_dev,
+                                                        *batch)
+    ref["grads_f64"] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    del model, tr
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    model, ae = (m.to(dev) for m in make_models(seed))
+    ref["scores"] = ScoringEngine(
+        model, ScoringConfig(uncertainty="THC+WPU", input_size=INPUT_SIZE),
+        ae_model=ae, chunk=BATCH, device=dev).score(*video.args)
+    ref["scores"]["heatmaps"] = ref["scores"]["heatmaps"].cpu()
+    del model, ae
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def _cos_norm(a, b):
+    a, b = a.ravel(), b.ravel()
+    na, nb = a.norm().item(), b.norm().item()
+    return ((a @ b).item() / (na * nb) if na > 0 and nb > 0 else 1.0), na, nb
+
+
+def _dp_scores_agree(got, ref, label):
+    """Two passes over the same samples, each a dict of host arrays with
+    its heatmaps, held to tests/test_sharding.py's bounds (rtol 2e-4, atol
+    1e-5): the heatmaps (:30's eval-step bound) and what is continuous in
+    them (the embeddings, THC `unc`, det_score, gc) on every sample; what
+    follows a heatmap's argmax (kpts, oks, WPU `unc2`) on every sample
+    whose argmaxes agree.  Where the two maps of a joint put their
+    argmaxes on different pixels, the two pixels were within twice the
+    maps' own difference of each other (the heatmap bound holds that): a
+    near tie of the seeded weights' maps, decided by the f32 rounding of
+    two runs, which moves a decoded keypoint by pixels.  Returns the
+    failures and, per key, the max |difference| and the flipped samples
+    with their largest lead."""
+    import numpy as np
+    import torch
+    g = torch.as_tensor(got["heatmaps"]).flatten(2).double()
+    w = torch.as_tensor(ref["heatmaps"]).flatten(2).double()
+    ag, aw = g.argmax(-1), w.argmax(-1)
+    flipped = (ag != aw).any(-1).numpy()
+    lead = (w.gather(-1, aw[..., None]) - w.gather(-1, ag[..., None]))
+    failed, worst = [], {"flipped_samples": int(flipped.sum()),
+                         "flip_lead_max": float(lead.max())}
+    keep = ~flipped
+    for k, rows in (("heatmaps", None), ("embeddings", None), ("unc", None),
+                    ("det_score", None), ("gc", None), ("kpts", keep),
+                    ("oks", keep), ("unc2", keep)):
+        a = np.asarray(torch.as_tensor(got[k]).double().cpu())
+        b = np.asarray(torch.as_tensor(ref[k]).double().cpu())
+        if a.shape != b.shape:
+            failed.append(f"{label} {k}: shapes {a.shape} {b.shape}")
+            continue
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        worst[k] = float(np.abs(a - b).max()) if a.size else 0.0
+        if not np.allclose(a, b, rtol=2e-4, atol=1e-5):
+            failed.append(f"{label} {k}: max |err| {worst[k]:.3e}")
+    return failed, worst
+
+
+def phase_dp_steps(video, card, seed):
+    """Steps 2 and 3: DP_RANKS gloo ranks (torch.multiprocessing spawn, a
+    FileStore) on the card against this process's one-process step and
+    pass from the same weights."""
+    import torch
+    import torch.multiprocessing as mp
+    ref = _dp_one_process(video, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = _dp_spec(video.frames_dev.device, root=video.root,
+                        ann=video.ann, seed=seed, store=f"{tmp}/store",
+                        out=f"{tmp}/rank")
+        t0 = time.perf_counter()
+        mp.start_processes(_dp_rank, args=(spec,), nprocs=DP_RANKS,
+                           start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank_{r}.pt", weights_only=False)
+                 for r in range(DP_RANKS)]
+    failed = []
+    r0 = ranks[0]
+    log(f"DP: {DP_RANKS} ranks on {[r['device'] for r in ranks]}, backend "
+        f"{r0['backend']}, spawned and run in {spawn_s:.1f} s ({card})")
+
+    # step 2
+    loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+    # a gradient tensor passes at tests/test_sharding.py:113's bar
+    # against the one-process step (cosine > 0.9999, norm within 1e-2),
+    # or where it is no further from the exact (f64) step's than twice
+    # the one-process f32 step's is (relative Frobenius distance, floor
+    # 1e-3): two f32 steps of these seeded weights part by more than the
+    # bar (phase_step_check's rule for the card against the CPU)
+    worst_cos, worst_norm, arbitrated = 1.0, 0.0, []
+    f64 = {"DP": 0.0, "one process": 0.0}
+    for k, g in ref["grads"].items():
+        cos, na, nb = _cos_norm(g, r0["grads"][k])
+        worst_cos = min(worst_cos, cos)
+        rel = abs(nb - na) / na if na > 0 else abs(nb)
+        worst_norm = max(worst_norm, rel)
+        exact = ref["grads_f64"][k]
+        e_dp, e_one = ((x - exact).norm().item()
+                       / max(exact.norm().item(), 1e-30)
+                       for x in (r0["grads"][k], g))
+        f64 = {"DP": max(f64["DP"], e_dp),
+               "one process": max(f64["one process"], e_one)}
+        if not (cos > 0.9999 and rel <= 1e-2):
+            if e_dp > max(1e-3, 2 * e_one):
+                failed.append(f"gradient {k}: cosine {cos:.6f}, norm rel "
+                              f"{rel:.3e}; from f64 {e_dp:.3e}, the one "
+                              f"process's {e_one:.3e}")
+            arbitrated.append(k)
+    bn_err = max(((r0["bn"][k] - v).abs().max() / v.abs().max()).item()
+                 for k, v in ref["bn"].items())
+    same = len({r["digest"] for r in ranks}) == 1
+    log(f"DP step (batch {RETRAIN['BATCH_SIZE']}, "
+        f"{RETRAIN['BATCH_SIZE'] // DP_RANKS} a rank, valid rows a rank "
+        f"{[r['step_valid'] for r in ranks]}): loss {r0['loss']:.7e} vs one "
+        f"process {ref['loss']:.7e}, rel {loss_err:.3e} (bar 1e-3); "
+        f"gradients: worst cosine {worst_cos:.7f} (bar > 0.9999), worst "
+        f"norm rel {worst_norm:.3e} (bar 1e-2); {len(arbitrated)} of "
+        f"{len(ref['grads'])} tensors past the bar, each held to the f64 "
+        f"step instead; worst relative distance from the f64 step's "
+        f"gradient {f64}; BN running statistics "
+        f"max rel {bn_err:.3e} (bar 1e-4); ranks' parameters bit-identical "
+        f"{same}; launches {[r['step_launches'] for r in ranks]}")
+    log(f"DP step: {r0['step_ms']:.2f} ms (median of {DP_TIMED}; one "
+        f"process {ref['step_ms']:.2f} ms); the gradient all-reduce alone "
+        f"{r0['all_reduce_ms']:.2f} ms for {r0['grad_bytes'] / 1e6:.1f} MB "
+        f"through gloo, the ranks sharing one card ({card})")
+    if loss_err > 1e-3 or bn_err > 1e-4 or not same:
+        failed.append(f"step: loss rel {loss_err:.3e}, BN {bn_err:.3e}, "
+                      f"ranks identical {same}")
+    for r in ranks:
+        if r["step_launches"]["rot_warp_crop"] != 1:
+            failed.append(f"step launches {r['step_launches']}")
+
+    # step 3
+    n = len(video.data)
+    for i, r in enumerate(ranks):
+        check_outputs(r["scores"], n)
+        f, worst = _dp_scores_agree(r["scores"], ref["scores"], f"rank {i}")
+        failed += f
+        want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
+                "rot_warp_crop": 1}
+        if r["pass_launches"] != want:
+            failed.append(f"rank {i} pass launches {r['pass_launches']}")
+    rate = n / (r0["pass_ms"] / 1e3)
+    log(f"DP pass (THC+WPU, f32, {n} samples, {n // DP_RANKS} a rank): "
+        f"against one process {worst} (bars rtol 2e-4, atol 1e-5; a "
+        f"flipped sample's decode apart); launches a rank "
+        f"{[r['pass_launches'] for r in ranks]}; "
+        f"{rate:.1f} samples/s over the pass (median of 3, {card})")
+    if failed:
+        raise AssertionError("DP steps: " + "; ".join(failed))
+    return {"step": {"loss_rel": loss_err, "worst_cosine": worst_cos,
+                     "worst_rel_from_f64": f64,
+                     "past_the_bar": len(arbitrated),
+                     "worst_norm_rel": worst_norm, "bn_rel": bn_err,
+                     "ms": r0["step_ms"], "one_process_ms": ref["step_ms"],
+                     "all_reduce_ms": r0["all_reduce_ms"],
+                     "grad_mb": r0["grad_bytes"] / 1e6,
+                     "launches": {k: sum(r["step_launches"][k]
+                                         for r in ranks)
+                                  for k in r0["step_launches"]}},
+            "pass": {"samples_per_s": rate, "ms": r0["pass_ms"],
+                     "max_abs_err": worst,
+                     "launches": {k: sum(r["pass_launches"][k]
+                                         for r in ranks)
+                                  for k in r0["pass_launches"]}}}
+
+
+def _dp_loop_argv(extra=()):
+    """Phase 5's CLI arguments, but for --synthetic: phase 3's video is
+    the one that --synthetic makes, and making it again takes 35-45 s."""
+    return ["--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
+            "--video_id", "000001", "--uncertainty", "THC+WPU",
+            "--representativeness", "Influence", "--filter", "Coreset",
+            "--continual", "--seedfix", "--memo", "chip_smoke", *extra]
+
+
+def _posetrack_layout(video, root):
+    """Phase 3's video under `root` as the CLI's prepare_dataset_paths
+    finds a PoseTrack21 validation video 000001 (symbolic links)."""
+    src = Path(video.root)
+    root.mkdir()
+    for f in src.iterdir():
+        (root / f.name).symlink_to(f)
+    ann = root / "activelearning" / "val" / "000001_mpii_test.json"
+    ann.parent.mkdir(parents=True)
+    ann.symlink_to(src / video.ann)
+
+
+def _keep_first_pass(store):
+    """A wrapper maker for ScoringEngine.score (`patched`): every pass
+    keeps its heatmaps, and the first pass's result is stored on the host
+    in `store`."""
+    import torch
+
+    def make(score):
+        def wrapper(self, *a, **kw):
+            res = score(self, *a, **dict(kw, keep_heatmaps=True))
+            if not store:
+                store.append({k: v.float().cpu() if torch.is_tensor(v)
+                              else v for k, v in res.items()})
+            return res
+        return wrapper
+    return make
+
+
+def _round0_gap(got, want):
+    """Round 0's THC and WPU scores (result.json's `uncertaity`) of two
+    runs: each criterion's max |difference| and the samples outside the
+    scoring pass's bounds (rtol 2e-4, atol 1e-5)."""
+    import numpy as np
+    keys = sorted(want, key=int)
+    if sorted(got, key=int) != keys:
+        return {"samples": (len(got), len(want))}
+    a = np.array([got[k] for k in keys], np.float64).reshape(len(keys), -1)
+    b = np.array([want[k] for k in keys], np.float64).reshape(len(keys), -1)
+    out = {}
+    for j, name in enumerate(("unc", "unc2")[:a.shape[1]]):
+        d = np.abs(a[:, j] - b[:, j])
+        out[name] = {"max_abs": float(d.max()),
+                     "outside": int((d > 1e-5 + 2e-4 * np.abs(b[:, j]))
+                                    .sum())}
+    return out
+
+
+def phase_dp_noop(video, seed, card):
+    """Step 1: ActiveLearning with --data_parallel in this process (no
+    WORLD_SIZE) on phase 3's video files: no mesh, and round 0's scores
+    and query list bit-identical to a round 0 without the flag, both on
+    deterministic algorithms; each against phase 5's round 0 (KEPT).
+    Returns the summary and round 0's pass (its scores and heatmaps on the
+    host), step 4's reference."""
+    import os
+    import torch
+    from vatl4pose_tpu_torch.al import scoring
+    from vatl4pose_tpu_torch.al.active_learning import ActiveLearning
+    from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.kernels import reset_launch_counts
+    if os.environ.get("WORLD_SIZE") not in (None, "1"):
+        raise AssertionError("step 1 needs a process without WORLD_SIZE")
+    p5 = json.load(open(KEPT.loops["p5"]["dir"] / "result.json"))
+    rounds, counts = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        model, ae = make_models(seed)
+        base = Cfg(copy.deepcopy(AL_CFG))
+        write_weights(tmp, base, model, ae)
+        del model, ae
+        for split in ("EVAL", "TRAIN"):
+            base.DATASET[split].update(ROOT=video.root, ANN=video.ann)
+        for dp in (True, False):
+            # two work dirs, whatever the clock says
+            extra = ["--memo", f"dp_{dp}"] + (["--data_parallel"] if dp
+                                               else [])
+            passes = []
+            with cli_workdir(copy.deepcopy(base), _dp_loop_argv(extra),
+                             tmp, prepare=False) as (cfg, opt), \
+                    deterministic(), \
+                    patched(scoring.ScoringEngine, "score",
+                            _keep_first_pass(passes)):
+                al = ActiveLearning(cfg, opt)
+                if al.mesh is not None:
+                    raise AssertionError("--data_parallel on one process "
+                                         "made a mesh")
+                reset_launch_counts()
+                al.eval_and_query()
+                _sync(al.device)
+                if dp:
+                    counts = launch_counts()
+                rounds[dp] = (
+                    {str(k): v for k, v in
+                     al.uncertainty_dict["Round0"].items()},
+                    al.query_list_list["Round0"])
+                if dp:
+                    round0 = passes[0]
+                del al
+                torch.cuda.empty_cache()
+    same = rounds[True] == rounds[False]
+    gap = {dp: _round0_gap(rounds[dp][0], p5["uncertaity"]["Round0"])
+           for dp in rounds}
+    same_query = {dp: r[1] == p5["query_list"]["Round0"]
+                  for dp, r in rounds.items()}
+    log(f"DP step 1: --data_parallel without WORLD_SIZE: mesh None; round "
+        f"0's scores and query list bit-identical to a round without the "
+        f"flag (both deterministic) {same}; against phase 5's round 0 "
+        f"(flag: True/False) query equal {same_query}, scores {gap}; "
+        f"launches {counts} ({card})")
+    if not same:
+        raise AssertionError("--data_parallel on one process changed "
+                             "round 0")
+    return {"launches": counts, "query": rounds[True][1],
+            "against_phase5": gap[True]}, round0
+
+
+class _WriteLog:
+    """Records the paths this process opens for writing and the
+    directories it makes, for the duration."""
+
+    def __init__(self):
+        self.paths = []
+
+    def __enter__(self):
+        import builtins
+        import os
+        self._orig = (builtins.open, os.mkdir)
+        orig_open, orig_mkdir = self._orig
+
+        def opening(file, mode="r", *a, **kw):
+            if isinstance(file, (str, bytes, os.PathLike)) \
+                    and any(c in mode for c in "wax+"):
+                self.paths.append(os.path.abspath(os.fsdecode(file)))
+            return orig_open(file, mode, *a, **kw)
+
+        def making(path, *a, **kw):
+            self.paths.append(os.path.abspath(os.fsdecode(path)))
+            return orig_mkdir(path, *a, **kw)
+        builtins.open, os.mkdir = opening, making
+        return self
+
+    def __exit__(self, *exc):
+        import builtins
+        import os
+        builtins.open, os.mkdir = self._orig
+
+
+def dp_loop_rank(spec_path):
+    """A rank of step 4, under torchrun: the CLI's `run` (set_dir,
+    prepare_synthetic, do_al, save_result; the process group from
+    torchrun's environment) on phase 5's config with --data_parallel,
+    every write of this process recorded.  Writes its report (rank,
+    launches, passes and steps, digests of the final estimator and AE,
+    the written paths) under the spec's `out`."""
+    import os
+    import torch
+    from vatl4pose_tpu_torch.al import scoring
+    from vatl4pose_tpu_torch.cli import run_active_learning as cli
+    from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.kernels import reset_launch_counts
+    spec = json.load(open(spec_path))
+    dev = _dp_adopt(spec)
+    rank = int(os.environ["RANK"])
+    opt = cli.setup_opt(cli.parse_args(spec["argv"]))
+    writes = _WriteLog()
+    walls = []
+
+    def timed(out, seconds):
+        walls.append(seconds)
+    first = []
+    with writes, CallLog() as calls, \
+            patched(scoring.ScoringEngine, "score", _keep_first_pass(first)):
+        # the loop's wall is do_al's, as phase 5's (its set-up apart)
+        calls.wrap(cli, "do_al", lambda *a, **kw: None, timed)
+        reset_launch_counts()
+        cli.run(Cfg(spec["cfg"]), opt)
+        _sync(dev)
+    if rank == 0:
+        torch.save(first[0], os.path.join(spec["out"], "round0.pt"))
+    report = {"rank": rank, "launches": launch_counts(), "loop_s": walls[0],
+              "passes": calls.score_calls, "steps": calls.train_steps,
+              "model": _digest(calls.al.model), "ae": _digest(calls.al.ae),
+              "device": str(calls.al.device), "writes": writes.paths}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def phase_dp_loop(video, seed, card, round0):
+    """Step 4: the DUW loop (phase 5's, f32, QUERY_RATIO cut to
+    DP_QUERY_RATIO, on phase 3's video files laid out as a PoseTrack21
+    video) under `torchrun --standalone --nproc_per_node DP_RANKS` with
+    --data_parallel, each rank this script's
+    `dp_loop_rank`; checked as phase 5's loop, with every file of the run
+    written by rank 0, the launches of every rank (K1 4, K2 1 and K3 1 a
+    pass, K3 once a step), round 0's pass against step 1's round 0
+    (`round0`: phase 5's configuration in one process) as step 3 holds the
+    pass (_dp_scores_agree), and every rank's estimator and AE
+    bit-identical to rank 0's at the end; round 0's scores against phase
+    5's result.json are printed beside."""
+    import os
+    import torch
+    from vatl4pose_tpu_torch.config import Cfg
+    n = VIDEO["num_frames"] * VIDEO["num_persons"]
+    rounds = len(DP_QUERY_RATIO)
+    p5 = json.load(open(KEPT.loops["p5"]["dir"] / "result.json"))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for d in ("run", "tmpdir", "out"):
+            (tmp / d).mkdir()
+        model, ae = make_models(seed)
+        cfg = Cfg(copy.deepcopy(AL_CFG))
+        cfg.VAL.QUERY_RATIO = list(DP_QUERY_RATIO)
+        write_weights(str(tmp), cfg, model, ae)
+        del model, ae
+        _posetrack_layout(video, tmp / "data")
+        for split in ("EVAL", "TRAIN"):
+            cfg.DATASET[split].ROOT = str(tmp / "data")
+        spec = _dp_spec("cuda" if torch.cuda.is_available() else "cpu",
+                        cfg=dict(cfg),
+                        argv=_dp_loop_argv(["--data_parallel"]),
+                        out=str(tmp / "out"))
+        if spec["device"] == "cpu":
+            spec["argv"] += ["--device", "cpu"]
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        env = dict(os.environ, TMPDIR=str(tmp / "tmpdir"),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(Path(__file__).resolve().parent),
+                        os.environ.get("PYTHONPATH", "")]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(DP_RANKS),
+               str(Path(__file__).resolve()), "--dp-loop-rank",
+               str(tmp / "spec.json")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp / "run", env=env,
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines()[-25:]:
+            log(f"  | {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-6000:])
+            raise AssertionError(f"the torchrun loop exited "
+                                 f"{proc.returncode}")
+        reports = sorted((json.loads(p.read_text())
+                          for p in (tmp / "out").glob("rank*.json")),
+                         key=lambda r: r["rank"])
+        loop_round0 = torch.load(tmp / "out" / "round0.pt",
+                                 weights_only=False)
+        (result,) = list((tmp / "run").glob("exp/**/result.json"))
+        rj = json.loads(result.read_text())
+        cycles = [json.loads(line) for line in
+                  (result.parent / "cycle_times.jsonl").read_text()
+                  .splitlines()]
+        under = str(tmp)
+        foreign = {r["rank"]: [p for p in r["writes"] if p.startswith(under)]
+                   for r in reports if r["rank"] != 0}
+        own = [p for p in reports[0]["writes"] if p.startswith(under)]
+    r0 = reports[0]
+    calls = type("Calls", (), {"score_calls": r0["passes"],
+                               "train_steps": r0["steps"]})
+    label = "AL loop --data_parallel"
+    phase_sums, table, failed = loop_report(
+        label, rj, cycles, r0["launches"], calls, r0["loop_s"], n, rounds,
+        card)
+    if len(reports) != DP_RANKS:
+        failed.append(f"{len(reports)} rank reports")
+    for r in reports:
+        p, s = r["passes"], r["steps"]
+        want = {"fused_bottleneck_chain": 4 * p, "fused_postprocess": p,
+                "rot_warp_crop": p + s}
+        if p != rounds + 1 or s == 0 or r["launches"] != want:
+            failed.append(f"rank {r['rank']}: launches {r['launches']}, "
+                          f"want {want}")
+        if (r["model"], r["ae"]) != (r0["model"], r0["ae"]):
+            failed.append(f"rank {r['rank']}'s final weights differ from "
+                          f"rank 0's")
+    same = all((r["model"], r["ae"]) == (r0["model"], r0["ae"])
+               for r in reports)
+    if any(foreign.values()) or not own:
+        failed.append(f"writes by other ranks {foreign}; rank 0 wrote "
+                      f"{len(own)} paths")
+    f, agree = _dp_scores_agree(loop_round0, round0, "round 0")
+    failed += f
+    gap = _round0_gap(rj["uncertaity"]["Round0"], p5["uncertaity"]["Round0"])
+    log(f"{label}: round 0's pass against step 1's round 0 (phase 5's "
+        f"configuration, one process) {agree} (bars rtol 2e-4, atol 1e-5; "
+        f"a flipped sample's decode apart); its scores against phase 5's "
+        f"result.json {gap}; round 0's query "
+        f"{sorted(rj['query_list']['Round0'])} / phase 5's "
+        f"{sorted(p5['query_list']['Round0'])} (not required equal: "
+        f"random weights put DUW's selection on f32 noise, ROADMAP C2); "
+        f"rank 0 wrote {len(own)} paths, the other ranks "
+        f"{sum(map(len, foreign.values()))}; final estimator and AE the "
+        f"same on every rank {same}; devices "
+        f"{[r['device'] for r in reports]}; torchrun wall "
+        f"{wall:.1f} s, the loop {r0['loop_s']:.2f} s on rank 0 ({card})")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"loop_s": r0["loop_s"], "torchrun_s": wall,
+            "phase_s": phase_sums, "rounds": table,
+            "round0_against_step1": agree,
+            "round0_against_phase5": gap,
+            "launches": {k: sum(r["launches"][k] for r in reports)
+                         for k in r0["launches"]},
+            "passes": r0["passes"], "train_steps": r0["steps"]}
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -3619,8 +4310,9 @@ def check_outputs(res, n):
         raise AssertionError("heatmaps: wrong shape or not finite")
 
 
-def main():
+def main(argv=None):
     import os
+    argv = sys.argv[1:] if argv is None else argv
     # deterministic cuBLAS (phases 7 and 11) needs its workspace fixed
     # before the first cuBLAS call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
@@ -3629,15 +4321,17 @@ def main():
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
     here = Path(__file__).resolve().parent
     if not (here / "vatl4pose_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(here))
+    if argv[:1] == ["--dp-loop-rank"]:
+        return dp_loop_rank(argv[1])
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
     # parity mode: no TF32 anywhere (the JAX tests pin 'highest')
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3706,14 +4400,24 @@ def main():
     phase("phase 12: analysis, tracking evaluation and --vis")
     vis = {"loop": phase_vis_loop(video, card, seed, al),
            "hooks": phase_vis_hooks(video, seed)}
-    del video
     t12 = time.perf_counter()
     vis["analysis"] = phase_analysis(card)
     vis["tracking"] = phase_tracking(card)
     vis["host_s"] = time.perf_counter() - t12
     log(f"phase 12, the analysis CLIs, pose_track_eval and JRDB AP: "
         f"{vis['host_s']:.3f} s on the host ({card})")
-    phase("phase 13: result")
+    torch.cuda.empty_cache()
+    phase("phase 13: data parallel, two gloo ranks on the card")
+    dp = {}
+    dp["noop"], round0 = phase_dp_noop(video, seed, card)
+    dp.update(phase_dp_steps(video, card, seed))
+    torch.cuda.empty_cache()
+    dp["loop"] = phase_dp_loop(video, seed, card, round0)
+    del video, round0
+    log("AL loop --data_parallel wall and split, s: " + json.dumps(
+        dict(dp["loop"]["phase_s"], wall=dp["loop"]["loop_s"])) + "; phase "
+        "5's " + json.dumps(dict(al["phase_s"], wall=al["loop_s"])))
+    phase("phase 14: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
@@ -3746,6 +4450,12 @@ def main():
     # phase 12's paths: the --vis loop and the hooks' scoring pass
     other_n["al_loop_vis"] = vis["loop"]["launches"]
     other_n["vis_hooks_scoring"] = vis["hooks"]["launches"]
+    # phase 13's paths, each summed over the ranks: the one-process
+    # --data_parallel round, the DP step, the DP pass and the DP loop
+    other_n["dp_noop_round0"] = dp["noop"]["launches"]
+    other_n["dp_train_step"] = dp["step"]["launches"]
+    other_n["dp_scoring"] = dp["pass"]["launches"]
+    other_n["dp_al_loop"] = dp["loop"]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
@@ -3822,6 +4532,7 @@ def main():
                     "al_loop_streaming": stream, "c1_loop": c1,
                     "other_strategies": other, "other_models": zoo,
                     "pretraining": pre, "analysis_and_vis": vis,
+                    "data_parallel": dp,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],

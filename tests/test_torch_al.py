@@ -216,12 +216,22 @@ def test_cli_main_synthetic_writes_result(tmp_path, monkeypatch):
         assert (p.parent / "al_state.pkl").exists()
 
 
-@pytest.mark.parametrize("flag,item", [("data_parallel", "A14")])
-def test_unported_options_raise(setup, flag, item):
+def test_data_parallel_on_one_rank_is_a_noop(setup, monkeypatch):
+    """--data_parallel without torchrun (WORLD_SIZE unset) does nothing,
+    as the JAX package's does on one device: no mesh, and round 0's
+    scores and query list those of a run without the flag, bit for
+    bit."""
     tmp, cfg = setup
-    with pytest.raises(NotImplementedError, match=item):
-        ActiveLearning(Cfg(copy.deepcopy(cfg)),
-                       Opt(str(tmp / "x"), **{flag: True}))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    rounds = []
+    for dp in (True, False):
+        al = ActiveLearning(Cfg(copy.deepcopy(cfg)),
+                            Opt(str(tmp / f"dp_{dp}"), data_parallel=dp))
+        assert al.mesh is None and al.primary
+        al.eval_and_query()
+        rounds.append((al.uncertainty_dict["Round0"],
+                       al.query_list_list["Round0"]))
+    assert rounds[0] == rounds[1]
 
 
 @pytest.mark.parametrize("flt", ["K-Means", "weighted"])

@@ -699,3 +699,63 @@ def test_validate_through_kernels_matches_plain_versions(cuda, tmp_path):
                                    np.array([e[key] for e in want[1]]),
                                    rtol=1e-4, atol=1e-3, err_msg=key)
     assert got[0]["AP"] == want[0]["AP"]
+
+
+def _dp_step_rank(rank, store, out):
+    """One rank of test_dp_step_on_one_card_keeps_ranks_identical."""
+    import torch.distributed as dist
+    from vatl4pose_tpu_torch.parallel import (
+        Sharding, build_sharded_train_step, make_mesh)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    mesh = make_mesh(2)
+    model, opt, batch = _dp_step_operands(mesh.device)
+    loss = build_sharded_train_step(model, opt, mesh)(
+        *(Sharding(mesh, ("data",)).local(a) for a in batch))[0]
+    torch.save({"loss": float(loss),
+                "state": {k: v.cpu() for k, v in model.state_dict().items()}},
+               f"{out}_{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _dp_step_operands(device):
+    """A seeded R18 in train mode, its AdamW, and a batch of 16 whose last
+    5 rows are padding: (x, target, mask, valid)."""
+    from vatl4pose_tpu_torch.models import SimplePose
+    from vatl4pose_tpu_torch.train import build_optimizer, set_lr
+    torch.manual_seed(0)
+    model = SimplePose(num_joints=17, num_layers=18, deconv_dim=(64, 64, 64),
+                       device="cpu").to(device).train()
+    opt = build_optimizer(model, {"OPTIMIZER": "AdamW", "LR": 2.5e-4,
+                                  "WEIGHT_DECAY": 0.7}, "SimplePose")
+    set_lr(opt, 2.5e-4)
+    rng = np.random.default_rng(5)
+    batch = (rng.normal(0, 1, (16, 3, 64, 64)),
+             rng.uniform(0, 1, (16, 17, 16, 16)),
+             rng.uniform(size=(16, 17, 1, 1)) > 0.2)
+    x, target, mask = (torch.tensor(a, dtype=torch.float32, device=device)
+                       for a in batch)
+    return model, opt, (x, target, mask,
+                        torch.arange(16, device=device) < 11)
+
+
+@pytest.mark.cuda
+def test_dp_step_on_one_card_keeps_ranks_identical(cuda, tmp_path):
+    """Two gloo ranks on cuda:0, one data-parallel train step (8 rows a
+    rank, 3 of rank 1's valid): every parameter and BN statistic
+    bit-identical across the ranks afterwards, and the loss within rel
+    1e-5 of the one-process step on the card."""
+    import torch.multiprocessing as mp
+    from vatl4pose_tpu_torch.models.criterion import masked_heatmap_loss
+    out = str(tmp_path / "rank")
+    mp.start_processes(_dp_step_rank, args=(str(tmp_path / "store"), out),
+                       nprocs=2, start_method="spawn")
+    r0, r1 = (torch.load(f"{out}_{r}.pt") for r in range(2))
+    assert r0["loss"] == r1["loss"]
+    for k, v in r0["state"].items():
+        assert torch.equal(v, r1["state"][k]), k
+    model, opt, (x, target, mask, valid) = _dp_step_operands(cuda)
+    loss = masked_heatmap_loss(model(x), target, mask, valid=valid).item()
+    assert r0["loss"] == pytest.approx(loss, rel=1e-5)

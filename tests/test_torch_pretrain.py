@@ -320,9 +320,11 @@ def test_wholebody_ae_train_matches_jax(tmp_path, monkeypatch, epochs,
         jax.tree.map(np.asarray, flax_init), "WholeBodyAE"))
 
 
-def test_entry_points_need_cuda_or_cpu(tmp_path, monkeypatch):
+def test_entry_points_need_cuda_or_cpu(tmp_path, monkeypatch, capsys):
     """Without CUDA every new entry point raises unless given --device cpu
-    (device="cpu")."""
+    (device="cpu").  A --launcher other than none is accepted and trains
+    on that one device, as the JAX CLI parses the launch flags and never
+    reads them."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg_yaml = tmp_path / "c.yaml"
     cfg_yaml.write_text("{}")
@@ -339,9 +341,20 @@ def test_entry_points_need_cuda_or_cpu(tmp_path, monkeypatch):
         pt.train(cfg, _opt(tmp_path, device=None))
     with pytest.raises(RuntimeError, match="CUDA"):
         poseestimator_eval.load_model(cfg)
-    with pytest.raises(NotImplementedError, match="A14"):
-        pt.main(["--cfg", str(cfg_yaml), "--launcher", "pytorch",
-                 "--device", "cpu"])
+    _, tiny = _cfg("", "", "")
+    tiny.TRAIN.END_EPOCH = 1
+    tiny.TRAIN.pop("DPG_MILESTONE")
+    import yaml
+    tiny_yaml = tmp_path / "tiny.yaml"
+    tiny_yaml.write_text(yaml.safe_dump(json.loads(json.dumps(tiny))))
+    model, history = pt.main(
+        ["--cfg", str(tiny_yaml), "--synthetic", "--seed", "5",
+         "--work_dir", str(tmp_path / "w"), "--launcher", "pytorch",
+         "--device", "cpu"])
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert "--launcher pytorch: pre-training runs on one device" \
+        in capsys.readouterr().out
 
 
 def test_simplepose_head_init_follows_reference():

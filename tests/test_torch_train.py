@@ -2,6 +2,8 @@
 geometry, targets, loss, accuracy and the train-mode BatchNorm) against
 the JAX package's on the CPU, with the same numpy inputs and weights."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -292,7 +294,7 @@ def test_aetrainer_matches_jax():
                                    atol=1e-5, err_msg=k)
 
 
-def test_trainers_default_to_cuda_and_refuse_unported(monkeypatch):
+def test_trainers_default_to_cuda_and_refuse_unported(monkeypatch, video):
     model = SimplePose(num_joints=17, num_layers=18, deconv_dim=(64, 64, 64),
                        device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -300,8 +302,24 @@ def test_trainers_default_to_cuda_and_refuse_unported(monkeypatch):
         Retrainer(model, RCFG, "SimplePose")
     with pytest.raises(RuntimeError, match="CUDA"):
         AETrainer(lr=1e-3, epochs=1)
-    with pytest.raises(NotImplementedError, match="A14"):
-        Retrainer(model, RCFG, "SimplePose", mesh=object(), device="cpu")
+    # a one-rank mesh (no process group) trains as without one, bit for
+    # bit
+    from vatl4pose_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device="cpu")
+    assert (mesh.shape, mesh.size) == ({"data": 1}, 1)
+    ds, frames = video
+    runs = []
+    for m in (mesh, None):
+        twin = copy.deepcopy(model)
+        tr = Retrainer(twin, RCFG, "SimplePose", input_size=(64, 64),
+                       hm_size=(16, 16), joint_pairs=ds.joint_pairs, seed=3,
+                       mesh=m, device="cpu")
+        runs.append((tr.retrain(ds.data, frames, np.arange(len(ds.data)), 1,
+                                (ds.data.width, ds.data.height)),
+                     twin.state_dict()))
+    assert runs[0][0] == runs[1][0]
+    for k, v in runs[1][1].items():
+        assert torch.equal(runs[0][1][k], v), k
     # bf16 retraining, by argument or by RETRAIN.BF16, is ported
     assert Retrainer(model, RCFG, "SimplePose", bf16=True, device="cpu").bf16
     assert Retrainer(model, dict(RCFG, BF16=True), "SimplePose",

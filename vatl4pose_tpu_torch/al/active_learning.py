@@ -45,7 +45,17 @@ The port's own design:
     the device and draws them.  The arrays the two criteria's figures are
     drawn from come from vis_thc_inputs and vis_wpu_inputs; the figures
     need matplotlib (utils/vis.py imports it inside).
-  - Not ported yet, and so refused: --data_parallel (A14).
+  - --data_parallel under torchrun (WORLD_SIZE above 1): one process a
+    rank (parallel/mesh.py's process model).  The process group is
+    initialised if the caller has not, the loaded weights (estimator, AE,
+    AuxNet) are broadcast from rank 0, and the Retrainer and the
+    ScoringEngine get the mesh: each scoring pass's stage 1 and each
+    resident retrain step's batch are sharded over the ranks.  Every rank
+    runs the same host code; rank 0's query list is held against each
+    rank's (a rank that selected another one raises), the AE fine-tune
+    ends in a broadcast of rank 0's AE, and rank 0 alone logs and writes
+    files.  With WORLD_SIZE unset or 1 the flag does nothing, as the JAX
+    package's does on one device.
 
 Device work per round: one chunked forward over the whole video and the
 stage-2 scoring (al/scoring.py), the cosine product and the f32 coreset
@@ -71,6 +81,8 @@ from ..eval.ospa import ospa_for_loc
 from ..models import AuxNet, build_sppe, build_wholebody_ae
 from ..models.convert import load_weights, read_weights
 from ..ops import bbox_xyxy_to_xywh, compute_hybrid
+from ..parallel import (broadcast_module, broadcast_object, init_distributed,
+                        make_mesh, world_size)
 from ..train.retrain import AETrainer, Retrainer
 from ..utils.profiling import CycleTimer
 from .al_metric import compute_corr, compute_spearmanr
@@ -81,9 +93,6 @@ from .selection import (coreset_selection, diversity_filter, fuse_thc_wpu,
                         random_filter, rank_candidates, total_scores)
 
 __all__ = ["ActiveLearning", "vis_thc_inputs", "vis_wpu_inputs"]
-
-# (option, ROADMAP item) pairs that the port refuses
-_UNPORTED_FLAGS = (("data_parallel", "A14"),)
 
 
 def _cpu_copy(state_dict):
@@ -135,12 +144,20 @@ class ActiveLearning:
     means CUDA (`opt.device` where the caller does not pass one)."""
 
     def __init__(self, cfg, opt, device=None):
-        for flag, item in _UNPORTED_FLAGS:
-            if getattr(opt, flag, False):
-                raise NotImplementedError(
-                    f"--{flag} is not ported yet (ROADMAP {item})")
-        self.device = resolve_device(device if device is not None
-                                     else getattr(opt, "device", None))
+        device = device if device is not None \
+            else getattr(opt, "device", None)
+        self.mesh = None
+        if getattr(opt, "data_parallel", False) and world_size() > 1:
+            # DP over the ranks (nn.DataParallel analog,
+            # ActiveLearning.py:233): scoring's stage 1 AND each retrain
+            # step's batch shard over 'data'
+            if not torch.distributed.is_initialized():
+                init_distributed(device)
+            self.mesh = make_mesh(device=device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
+        self.primary = self.mesh is None or self.mesh.rank == 0
         self.cfg = cfg
         self.opt = opt
         self.round_cnt = 0
@@ -153,7 +170,7 @@ class ActiveLearning:
         self.video_id = opt.video_id
         self.work_dir = opt.work_dir
         self.seed = getattr(opt, "seed", None)
-        self.timer = CycleTimer(opt.work_dir)
+        self.timer = CycleTimer(opt.work_dir if self.primary else None)
         self.rng = np.random.RandomState(self.seed)
 
         # ---- data: the frames go to the device once, or stream ------------
@@ -223,8 +240,9 @@ class ActiveLearning:
                                 device="cpu")
         if not from_scratch:
             self._load_pretrained()
-        self.pretrained_sd = _cpu_copy(self.model.state_dict())
         self.model.to(self.device)
+        self._broadcast(self.model)
+        self.pretrained_sd = _cpu_copy(self.model.state_dict())
         aug_cfg = cfg.DATASET.TRAIN.get("AUG", {})
         self.retrainer = Retrainer(
             self.model, cfg.RETRAIN, cfg.MODEL.TYPE,
@@ -238,7 +256,8 @@ class ActiveLearning:
                 num_joints_half_body=aug_cfg.get("NUM_JOINTS_HALF_BODY", 8),
                 prob_half_body=aug_cfg.get("PROB_HALF_BODY", -1)),
             joint_pairs=self.dataset.joint_pairs,
-            seed=self.seed or 166, bf16=self.speedup, device=self.device)
+            seed=self.seed or 166, bf16=self.speedup, mesh=self.mesh,
+            device=self.device)
         self.retrain_epoch = cfg.RETRAIN.BASE
 
         # ---- WPU autoencoder -------------------------------------------------
@@ -252,8 +271,9 @@ class ActiveLearning:
             self.ae = build_wholebody_ae(cfg.AE, device="cpu")
             if ae_root:
                 self._load_ae_pretrained(ae_root)
-            self.ae_pretrained_sd = _cpu_copy(self.ae.state_dict())
             self.ae.to(self.device)
+            self._broadcast(self.ae)
+            self.ae_pretrained_sd = _cpu_copy(self.ae.state_dict())
             self.ae_features = compute_hybrid(
                 torch.from_numpy(self.data.raw_bbox_xywh),
                 torch.from_numpy(self.data.gt_keypoints)).numpy()
@@ -267,6 +287,7 @@ class ActiveLearning:
             depth = cfg.MODEL.get("NUM_LAYERS", 50)
             self.aux = AuxNet(in_channels=2048 if depth >= 50 else 512,
                               device=self.device)
+            self._broadcast(self.aux)
 
         # ---- scoring engine --------------------------------------------------
         need_emb = (self.representativeness not in ("None", "Random")
@@ -278,7 +299,11 @@ class ActiveLearning:
                           input_size=tuple(cfg.DATA_PRESET.IMAGE_SIZE),
                           eval_joints=self.eval_joints, bf16=self.speedup),
             ae_model=self.ae, aux_model=self.aux,
-            chunk=min(512, max(32, self.eval_len)), device=self.device)
+            chunk=min(512, max(32, self.eval_len)), device=self.device,
+            mesh=self.mesh)
+        if self.mesh is not None:
+            self._log(f"[DP] scoring+retrain sharded over {self.mesh.size} "
+                      f"ranks")
         self._log(f"[[AL strategy: {self.strategy}]] video {self.video_id} "
                   f"N={self.eval_len} model={cfg.MODEL.TYPE} "
                   f"device={self.device}")
@@ -293,7 +318,13 @@ class ActiveLearning:
 
     # ------------------------------------------------------------------ utils
     def _log(self, msg):
-        print(msg, flush=True)
+        if self.primary:
+            print(msg, flush=True)
+
+    def _broadcast(self, module):
+        """Rank 0's weights of `module` on every rank (under a mesh)."""
+        if self.mesh is not None:
+            broadcast_module(module, self.mesh.group("data"))
 
     def _load_pretrained(self):
         """MODEL.PRETRAINED into the model; a missing path raises."""
@@ -375,12 +406,13 @@ class ActiveLearning:
             gt_json.append(e_gt)
 
         gt_dict = self._gt_coco_dict(gt_json)
-        os.makedirs(self.work_dir, exist_ok=True)
-        with open(os.path.join(self.work_dir, "predicted_kpt.json"),
-                  "w") as f:
-            json.dump(kpt_json, f)
-        with open(os.path.join(self.work_dir, "GT_kpt.json"), "w") as f:
-            json.dump(gt_dict, f)
+        if self.primary:
+            os.makedirs(self.work_dir, exist_ok=True)
+            with open(os.path.join(self.work_dir, "predicted_kpt.json"),
+                      "w") as f:
+                json.dump(kpt_json, f)
+            with open(os.path.join(self.work_dir, "GT_kpt.json"), "w") as f:
+                json.dump(gt_dict, f)
         with self.timer.phase("map_ospa"):
             perf = evaluate_map(kpt_json, gt_dict)
             ospa = ospa_for_loc(gt_dict, kpt_json)
@@ -388,6 +420,8 @@ class ActiveLearning:
             ospa_ann = ospa_for_loc(gt_dict, kpt_json_ann)
 
         rc = f"Round{self.round_cnt}"
+        # rank 0 alone writes the dumps and draws the figures
+        vis = vis and self.primary
         if vis:
             # per-round artifact dumps (ActiveLearning.py:416-429, 448-453)
             hm_dir = os.path.join(self.work_dir, "heatmap", rc)
@@ -445,14 +479,16 @@ class ActiveLearning:
 
         # the criteria's figures (ActiveLearning.py:360-363 vis_thc,
         # :383-385 vis_wpu), per sample under work_dir
-        if getattr(self.opt, "vis_thc", False) and "THC" in self.uncertainty:
+        if getattr(self.opt, "vis_thc", False) and "THC" in self.uncertainty \
+                and self.primary:
             from ..utils.vis import visualize_thc
             thc_dir = os.path.join(self.work_dir, "vis_thc", rc)
             for ann_id, prev, cur, nxt, thc in vis_thc_inputs(
                     res["heatmaps"], self.eval_joints, d.is_prev, d.is_next,
                     d.ann_ids, unc):
                 visualize_thc(thc_dir, ann_id, prev, cur, nxt, thc)
-        if getattr(self.opt, "vis_wpu", False) and "WPU" in self.uncertainty:
+        if getattr(self.opt, "vis_wpu", False) and "WPU" in self.uncertainty \
+                and self.primary:
             from ..utils.vis import visualize_wpu
             wpu_dir = os.path.join(self.work_dir, "vis_wpu", rc)
             ann_ids, feats, recon, wpu = vis_wpu_inputs(
@@ -517,6 +553,7 @@ class ActiveLearning:
             query_list = self._apply_filter(candidate_list, total_score,
                                             res.get("embeddings"),
                                             combine_weight, unlabeled_idx)
+        self._agree(query_list)
 
         # the cluster / coreset selection figure (pltcluster_and_save /
         # pltcoreset_and_save, ActiveLearning.py:551-617, behind a
@@ -560,6 +597,19 @@ class ActiveLearning:
             self._log(f"Queried: {sorted(query_list)}")
             self._is_finished(query_list, oks_dict)
         self.timer.end_cycle()
+
+    def _agree(self, query_list):
+        """Under a mesh: every rank must have selected rank 0's query (the
+        same host code on the same gathered scores); a rank whose host
+        state diverged raises rather than train on another set."""
+        if self.mesh is None:
+            return
+        want = broadcast_object([int(q) for q in query_list],
+                                self.mesh.group("data"))
+        if [int(q) for q in query_list] != want:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} selected another query than rank 0 "
+                f"in round {self.round_cnt}: the ranks' host state diverged")
 
     def _gt_coco_dict(self, gt_json):
         from ..data.coco_json import CocoJson
@@ -711,6 +761,7 @@ class ActiveLearning:
                 AETrainer(lr=self.cfg.AE.LR, epochs=self.cfg.AE.EPOCH,
                           device=self.device).train(
                               self.ae, self.ae_features[labeled])
+                self._broadcast(self.ae)
 
     # ---------------------------------------------------------- checkpoint
     _STATE_FIELDS = [

@@ -19,6 +19,15 @@ recompile per shape, so neither stage pads to a static size; the outputs
 for the real rows are the same.  Every branch of the JAX package's
 `_score_video` is ported: HP, TPC, THC_L1, THC_L2, THC+WPU, WPU, VL4Pose,
 MPE, Entropy, Margin and None.
+
+Data parallel (`mesh=`, parallel/mesh.py; one process a rank): the chunk
+is rounded to a multiple of the mesh's size as in the JAX package, each
+rank crops and forwards its contiguous block of every chunk (the last
+chunk may be ragged: the blocks then differ by a row at most), and the
+blocks' heatmaps, embeddings, crop boxes and AuxNet outputs are gathered.
+Stage 2 runs on the whole gathered arrays on every rank: it is small, and
+so every rank has the same scores for the same host-side selection.
+`score_streaming` does not use the mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from ..ops import (bbox_xyxy_to_xywh, compute_entropy, compute_hybrid,
                    compute_margin, compute_mpe, compute_oks, crop_batch,
                    crop_to_image, normalize_crops, thc_scores, tpc_scores)
 from ..ops.vl4pose import vl4pose_scores
+from ..parallel import all_gather
 
 UNC_NONE = "None"
 UNCERTAINTIES = ("HP", "TPC", "THC_L1", "THC_L2", "THC+WPU", "WPU",
@@ -68,11 +78,12 @@ class ScoringEngine:
     WholeBodyAE that the WPU branches need, `aux_model` the AuxNet that
     VL4Pose needs (it runs in f32 on the backbone feature, also under
     bf16 serving, as the JAX package's f32 aux variables do).  device=None
-    means CUDA.
+    means CUDA.  `mesh` (parallel.Mesh): stage 1 sharded over its 'data'
+    axis; a mesh whose 'data' axis holds one rank scores as without one.
     """
 
     def __init__(self, model, cfg: ScoringConfig, ae_model=None,
-                 aux_model=None, chunk: int = 512, device=None):
+                 aux_model=None, chunk: int = 512, device=None, mesh=None):
         u = cfg.uncertainty
         if u not in UNCERTAINTIES:
             raise ValueError(f"Uncertainty type {u} is not supported")
@@ -85,6 +96,11 @@ class ScoringEngine:
         self.cfg = cfg
         self.ae_model = ae_model
         self.aux_model = aux_model
+        self.mesh = mesh if mesh is not None \
+            and mesh.shape.get("data", 1) > 1 else None
+        if self.mesh is not None:
+            n_dev = mesh.size
+            chunk = max(chunk, n_dev) // n_dev * n_dev
         self.chunk = chunk
 
     # ---- stage 1: heatmaps + embeddings ----------------------------------
@@ -139,14 +155,35 @@ class ScoringEngine:
         outs = []
         try:
             for s in range(0, bboxes.shape[0], self.chunk):
-                e = s + self.chunk
-                outs.append(self._forward_chunk(model, frames, frame_idx[s:e],
-                                                bboxes[s:e]))
+                e = min(s + self.chunk, bboxes.shape[0])
+                if self.mesh is not None:
+                    outs.append(self._forward_block(model, frames,
+                                                    frame_idx, bboxes, s, e))
+                else:
+                    outs.append(self._forward_chunk(model, frames,
+                                                    frame_idx[s:e],
+                                                    bboxes[s:e]))
         finally:
             model.train(was_training)
         hms, embs, auxs, crops_bb = zip(*outs)
         auxs = torch.cat(auxs) if self.cfg.vl4pose else None
         return torch.cat(hms), torch.cat(embs), torch.cat(crops_bb), auxs
+
+    def _forward_block(self, model, frames, frame_idx, bboxes, s, e):
+        """This rank's contiguous block of the chunk s..e, forwarded, then
+        every rank's block gathered: the chunk's outputs on every rank.
+        A rank whose block is empty (a last chunk of fewer rows than
+        ranks) forwards one row and contributes none."""
+        n, r = self.mesh.shape["data"], self.mesh.coords["data"]
+        lo, hi = s + r * (e - s) // n, s + (r + 1) * (e - s) // n
+        keep = hi - lo
+        if keep == 0:
+            lo, hi = s, s + 1
+        out = self._forward_chunk(model, frames, frame_idx[lo:hi],
+                                  bboxes[lo:hi])
+        group = self.mesh.group("data")
+        return tuple(None if t is None else all_gather(t[:keep], group)
+                     for t in out)
 
     # ---- stage 2: decode + criteria --------------------------------------
     @torch.no_grad()

@@ -13,8 +13,7 @@ its --synthetic fixture writes JRDB-style 3-digit annotation ids.
 
 from __future__ import annotations
 
-from .posetrack_train import (_check_launcher, parse_args,
-                              synthetic_train_set, train)
+from .posetrack_train import parse_args, synthetic_train_set, train
 
 __all__ = ["check_jrdb", "main"]
 
@@ -32,7 +31,6 @@ def main(argv=None):
     from ..config import update_config
     from ..device import resolve_device
     opt = parse_args(argv)
-    _check_launcher(opt)
     resolve_device(opt.device)
     cfg = update_config(opt.cfg)
     np.random.seed(opt.seed)

@@ -22,7 +22,9 @@ model_{epoch}.pth and model_best.pth, which the AL loop loads as
 MODEL.PRETRAINED.  MODEL.PRETRAINED may be a .pth or a .pkl of the JAX
 package's Flax variables.  --device cpu runs on the CPU with the kernels'
 plain versions; otherwise CUDA is required.  The distributed-launch flags
-are parsed; any launcher but "none" raises (ROADMAP A14).
+(--rank, --dist-url, --dist-backend, --launcher, --sync) are parsed and
+not read, as in the JAX CLI: pre-training runs on one device (data
+parallel is the AL loop's, cli/run_active_learning.py --data_parallel).
 """
 
 from __future__ import annotations
@@ -59,17 +61,11 @@ def parse_args(argv=None):
     p.add_argument("--launcher", choices=["none", "pytorch", "slurm", "mpi"],
                    default="none")
     p.add_argument("--sync", action="store_true",
-                   help="SyncBatchNorm under data parallel (ROADMAP A14)")
+                   help="parsed and not read: pre-training runs on one "
+                        "device")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; CUDA when not given")
     return p.parse_args(argv)
-
-
-def _check_launcher(opt):
-    if getattr(opt, "launcher", "none") != "none":
-        raise NotImplementedError(
-            f"--launcher {opt.launcher}: data-parallel training is not "
-            "ported yet (ROADMAP A14)")
 
 
 def _retrain_cfg(cfg):
@@ -129,7 +125,10 @@ def train(cfg, opt, device=None):
     from ..device import resolve_device
     from ..train.optim import multistep_lr, with_warmup
 
-    _check_launcher(opt)
+    if getattr(opt, "launcher", "none") != "none":
+        print(f"--launcher {opt.launcher}: pre-training runs on one device, "
+              "as in the JAX CLI (the launch flags are not read)",
+              flush=True)
     device = resolve_device(device if device is not None
                             else getattr(opt, "device", None))
     dataset = build_dataset(cfg.DATASET.TRAIN)
@@ -263,13 +262,12 @@ def main(argv=None):
     from ..config import update_config
     from ..device import resolve_device
     opt = parse_args(argv)
-    _check_launcher(opt)
     resolve_device(opt.device)
     cfg = update_config(opt.cfg)
     np.random.seed(opt.seed)
     if opt.synthetic:
         cfg = synthetic_train_set(cfg, opt)
-    train(cfg, opt)
+    return train(cfg, opt)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,18 @@ VAL.UNC_LAMBDA for the best mean ALC (al/optuna_lite.py, TPE or a grid;
 --vis writes each round's heatmaps (float16), ann ids and predictions
 under the work dir and, under the Coreset, K-Means and weighted filters,
 the cluster figure; --vis_thc and --vis_wpu draw the two criteria's
-figures (matplotlib).  Not ported yet, and so refused: --data_parallel
-(A14).
+figures (matplotlib).
+
+Data parallel, one process a rank (parallel/mesh.py):
+
+    torchrun --standalone --nproc_per_node N \
+        -m vatl4pose_tpu_torch.cli.run_active_learning --data_parallel ...
+
+shards each scoring pass's stage 1 and each retrain step's batch over the
+N ranks (nccl when each rank has a card of its own, gloo when ranks share
+one or run on the CPU).  Every rank runs the loop; rank 0 alone makes the
+work dir and the synthetic video, logs and writes files.  Without
+torchrun (WORLD_SIZE unset or 1) --data_parallel does nothing.
 """
 
 from __future__ import annotations
@@ -35,9 +45,18 @@ from datetime import datetime
 
 import numpy as np
 
+from ..parallel import (broadcast_object, init_distributed, is_primary,
+                        world_size)
+
 __all__ = ["parse_args", "setup_opt", "set_dir", "prepare_synthetic",
            "prepare_dataset_paths", "do_al", "save_result", "run_study",
-           "optimize_alc", "main"]
+           "optimize_alc", "run", "main"]
+
+
+def _log(msg):
+    """Printed by rank 0 alone under data parallel."""
+    if is_primary():
+        print(msg, flush=True)
 
 
 def parse_args(argv=None):
@@ -98,8 +117,8 @@ def parse_args(argv=None):
     p.add_argument("--synth_size", type=int, nargs=2, default=[320, 240],
                    metavar=("W", "H"))
     p.add_argument("--data_parallel", action="store_true",
-                   help="data parallel over several cards: not ported yet "
-                        "(ROADMAP A14)")
+                   help="under torchrun: scoring and retraining sharded "
+                        "over the ranks (a no-op on one rank)")
     p.add_argument("--checkpoint_state", action="store_true",
                    help="checkpoint the AL state every round "
                         "(work_dir/al_state.pkl)")
@@ -144,16 +163,31 @@ def set_dir(cfg, opt):
 
     timestamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     sub = "optimize" if opt.optimize else opt.video_id
-    opt.work_dir = os.path.join(
+    # under data parallel, rank 0's name (its clock's) on every rank
+    opt.work_dir = broadcast_object(os.path.join(
         "exp", f"AL_{opt.memo}", cfg.MODEL.TYPE, opt.strategy or "filteronly",
-        sub, timestamp)
-    os.makedirs(opt.work_dir, exist_ok=False)
+        sub, timestamp))
+    if is_primary():
+        os.makedirs(opt.work_dir, exist_ok=False)
     return opt
 
 
 def prepare_synthetic(cfg, opt):
     """A synthetic video in a fresh temporary directory, set as both
-    dataset splits."""
+    dataset splits (made by rank 0 under data parallel)."""
+    if is_primary():
+        root, ann = _make_synthetic(cfg, opt)
+    else:
+        root = ann = None
+    root, ann = broadcast_object((root, ann))
+    for split in ("EVAL", "TRAIN"):
+        cfg.DATASET[split].ROOT = root
+        cfg.DATASET[split].ANN = ann
+        cfg.DATASET[split].IMG_PREFIX = ""
+    return cfg
+
+
+def _make_synthetic(cfg, opt):
     import tempfile
     from ..data.synthetic import make_synthetic_video
     root = tempfile.mkdtemp(prefix="vatl_synth_")
@@ -171,11 +205,7 @@ def prepare_synthetic(cfg, opt):
         root, video_id=opt.video_id, seed=seed,
         num_frames=opt.synth_frames, num_persons=opt.synth_persons,
         width=opt.synth_size[0], height=opt.synth_size[1], **extra)
-    for split in ("EVAL", "TRAIN"):
-        cfg.DATASET[split].ROOT = root
-        cfg.DATASET[split].ANN = ann
-        cfg.DATASET[split].IMG_PREFIX = ""
-    return cfg
+    return root, ann
 
 
 def prepare_dataset_paths(cfg, opt):
@@ -210,13 +240,14 @@ def prepare_dataset_paths(cfg, opt):
 
 def do_al(cfg, opt):
     """One video's AL loop: eval_and_query then outcome, round after round,
-    until outcome returns the result."""
+    until outcome returns the result.  Rank 0 alone logs and checkpoints
+    under data parallel."""
     from ..al.active_learning import ActiveLearning
     prepare_dataset_paths(cfg, opt)
     al = ActiveLearning(cfg, opt)
     if getattr(opt, "resume", None):
         al.load_state(opt.resume)
-        print(f"resumed from {opt.resume} at round {al.round_cnt}")
+        _log(f"resumed from {opt.resume} at round {al.round_cnt}")
     t0 = time.time()
     cycles = 0
     while True:
@@ -231,18 +262,20 @@ def do_al(cfg, opt):
             al.eval_and_query()
         result = al.outcome()
         cycles += 1
-        print(f"[cycle {cycles}] wall {time.time() - tc:.2f}s", flush=True)
-        if getattr(opt, "checkpoint_state", False) and result is None:
+        _log(f"[cycle {cycles}] wall {time.time() - tc:.2f}s")
+        if getattr(opt, "checkpoint_state", False) and result is None \
+                and is_primary():
             al.save_state()
         if result is not None:
-            print(f"Active learning finished! total {time.time() - t0:.1f}s")
+            _log(f"Active learning finished! total {time.time() - t0:.1f}s")
             break
     return result
 
 
 def save_result(cfg, opt, result):
     """result.json with the reference's field set
-    (Run_active_learning.py:211-244)."""
+    (Run_active_learning.py:211-244), written by rank 0 alone under data
+    parallel; every rank returns its path."""
     rj = {
         "config_file": opt.cfg,
         "video_id": opt.video_id,
@@ -270,9 +303,10 @@ def save_result(cfg, opt, result):
         "moks_queried": result[19],
     }
     path = os.path.join(opt.work_dir, "result.json")
-    with open(path, "w") as f:
-        json.dump(rj, f)
-    print(f"Result saved to: {path}!")
+    if is_primary():
+        with open(path, "w") as f:
+            json.dump(rj, f)
+        _log(f"Result saved to: {path}!")
     return path
 
 
@@ -300,8 +334,8 @@ def run_study(cfg, opt, video_list, n_trials=None):
             ap95 = np.array([r["AP .95"] for r in result[2]]) * 100
             alcs.append(compute_alc(result[0], ap95))
         alc = float(np.mean(alcs))
-        print(f"trial {trial.number}: unc_lambda="
-              f"{cfg.VAL.UNC_LAMBDA:.4g} ALC={alc:.4f}", flush=True)
+        _log(f"trial {trial.number}: unc_lambda={cfg.VAL.UNC_LAMBDA:.4g} "
+             f"ALC={alc:.4f}")
         return alc
 
     if getattr(opt, "search", "tpe") == "grid":
@@ -314,7 +348,7 @@ def run_study(cfg, opt, video_list, n_trials=None):
     study = create_study(direction="maximize", sampler=sampler)
     study.optimize(objective, n_trials=count if n_trials is None
                    else n_trials)
-    print(f"Best ALC: {study.best_value} Best params: {study.best_params}")
+    _log(f"Best ALC: {study.best_value} Best params: {study.best_params}")
     return study
 
 
@@ -322,16 +356,36 @@ def optimize_alc(cfg, opt, video_list):
     """run_study, then the two figures the reference writes
     (Run_active_learning.py:205-209; matplotlib)."""
     study = run_study(cfg, opt, video_list)
-    study.plot_history(os.path.join(opt.work_dir, "optuna_history.png"))
-    study.plot_slice(os.path.join(opt.work_dir, "optuna_slice.png"))
+    if is_primary():
+        study.plot_history(os.path.join(opt.work_dir, "optuna_history.png"))
+        study.plot_slice(os.path.join(opt.work_dir, "optuna_slice.png"))
     return study
 
 
 def main(argv=None):
     from ..config import update_config
-    opt = parse_args(argv)
-    opt = setup_opt(opt)
-    cfg = update_config(opt.cfg)
+    opt = setup_opt(parse_args(argv))
+    run(update_config(opt.cfg), opt)
+
+
+def run(cfg, opt):
+    """What main does once the config is read: the work dir, the synthetic
+    video if asked for, then the study, each video's loop or the one
+    video's loop and its result.json.  Under --data_parallel with
+    WORLD_SIZE above 1 the process group is initialised first (unless
+    the caller has) and destroyed after."""
+    import torch.distributed as dist
+    dp = opt.data_parallel and world_size() > 1 and not dist.is_initialized()
+    if dp:
+        init_distributed(opt.device)
+    try:
+        _run(cfg, opt)
+    finally:
+        if dp:
+            dist.destroy_process_group()
+
+
+def _run(cfg, opt):
     opt = set_dir(cfg, opt)
     if opt.synthetic:
         cfg = prepare_synthetic(cfg, opt)
@@ -352,7 +406,8 @@ def main(argv=None):
         for vid in videos:
             opt.video_id = vid
             opt.work_dir = os.path.join(base_dir, vid)
-            os.makedirs(opt.work_dir, exist_ok=True)
+            if is_primary():
+                os.makedirs(opt.work_dir, exist_ok=True)
             result = do_al(cfg, opt)
             save_result(cfg, opt, result)
         return

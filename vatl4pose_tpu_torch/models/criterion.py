@@ -18,7 +18,8 @@ def mse_loss(pred, target):
     return (pred - target).square().mean()
 
 
-def masked_heatmap_loss(pred, target, target_weight, valid=None):
+def masked_heatmap_loss(pred, target, target_weight, valid=None,
+                        n_valid=None):
     """0.5 * MSE(pred*mask, target*mask), the mean taken over every element
     of the valid samples.
 
@@ -26,6 +27,8 @@ def masked_heatmap_loss(pred, target, target_weight, valid=None):
     a broadcastable joint mask; valid: optional (N,) bool for padded
     batches: padded rows add 0 to the sum and are left out of the
     denominator, which is the reference's mean over the real batch.
+    n_valid: the valid count the mean divides by, valid.sum() by default
+    (a data-parallel rank passes the global batch's: parallel/steps.py).
     """
     sq = ((pred - target) * target_weight).square()
     if valid is None:
@@ -33,5 +36,7 @@ def masked_heatmap_loss(pred, target, target_weight, valid=None):
     valid = valid.to(sq.dtype)
     per_elem = sq.reshape(sq.shape[0], -1)
     total = (per_elem.sum(dim=1) * valid).sum()
-    denom = valid.sum().clamp(min=1.0) * per_elem.shape[1]
+    if n_valid is None:
+        n_valid = valid.sum()
+    denom = n_valid.clamp(min=1.0) * per_elem.shape[1]
     return 0.5 * total / denom

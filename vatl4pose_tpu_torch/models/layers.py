@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.mesh import active_mesh, all_reduce_sum
+
 __all__ = ["BatchNorm2d", "batchnorm", "conv_transpose", "max_pool",
            "SELayer", "DUC"]
 
@@ -27,11 +29,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     momentum 1 into scratch buffers (which then hold the batch mean and the
     unbiased variance); the running buffers are updated from those.  A
     bf16 input (bf16 retraining) is normalized as Flax does it: the
-    statistics and the affine in f32, the output rounded to bf16."""
+    statistics and the affine in f32, the output rounded to bf16.
+
+    In train mode inside `with mesh:` (parallel/mesh.py) over more than
+    one rank, the batch statistics are the global batch's (SyncBatchNorm
+    semantics, as the JAX package's jit over a mesh computes them): see
+    `_synced`.  Outside a mesh the F.batch_norm call above runs as it
+    is."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        mesh = active_mesh()
+        if mesh is not None and mesh.shape.get("data", 1) > 1:
+            return self._synced(x, mesh.group("data"))
         c = self.num_features
         stat = torch.promote_types(x.dtype, torch.float32)
         batch_mean = torch.zeros(c, dtype=stat, device=x.device)
@@ -46,6 +57,33 @@ class BatchNorm2d(nn.BatchNorm2d):
                                               alpha=m * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _synced(self, x, group):
+        """The batch statistics over the group's ranks, in f32 (f64 for an
+        f64 input): the count and the per-channel sum first, then the
+        centred sum of squares (E[x^2] - mean^2 would cancel on post-ReLU
+        maps), each summed over the ranks by a differentiable all-reduce,
+        so that the backward carries the cross-rank terms.  running_var
+        takes the biased global variance (the Flax update);
+        nn.SyncBatchNorm would take the unbiased one."""
+        c = self.num_features
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3)
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                           device=x.device)
+        stats = all_reduce_sum(torch.cat([count, xf.sum(dims)]), group)
+        n, mean = stats[0], stats[1:] / stats[0]
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce_sum(centred.square().sum(dims), group) / n
+        y = centred * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight.to(xf.dtype)[None, :, None, None] \
+            + self.bias.to(xf.dtype)[None, :, None, None]
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def batchnorm(ch: int) -> BatchNorm2d:

@@ -22,7 +22,16 @@ state, the BatchNorm running statistics and the loss stay f32.  The
 module's own parameters stay f32 between steps, so the scoring engine
 folds BN from f32 weights.  `retrain_streaming` trains on the host warp's
 crops (data/stream.CropStreamer) for frames that stay in host RAM.
-Data-parallel retraining (ROADMAP A14) is not ported yet and raises.
+
+Data parallel (`mesh=`, parallel/mesh.py; one process a rank): `retrain`
+draws every step's geometry on every rank in the same rng order, and each
+rank crops and trains its contiguous block of the batch through
+parallel/steps.build_sharded_train_step (the JAX package's P(None,
+"data") over its scan steps; a BATCH_SIZE that the 'data' axis does not
+divide raises, as there).  `retrain_streaming` stays unsharded, as the JAX
+package's `_step_crops` is: every rank runs the whole streamed step, then
+rank 0's parameters, buffers and optimizer state are broadcast.
+`AETrainer` is unsharded (ActiveLearning broadcasts rank 0's AE).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from ..kernels.rot_warp import rot_warp_crop
 from ..models.criterion import masked_heatmap_loss
 from ..ops.heatmap import gaussian_target
 from ..ops.warp import normalize_crops
+from ..parallel import Sharding, broadcast_module, build_sharded_train_step
 from ..utils.metrics import acc_tensor
 from .optim import build_optimizer, exponential_lr, set_lr
 
@@ -67,16 +77,15 @@ class Retrainer:
     place) over a subset of one video's samples.  The optimizer state and
     `epoch_counter` live on the trainer and survive across calls, as the AL
     loop's continual mode needs; `reset_schedule` and `reset_optimizer`
-    start them anew.  device=None means CUDA."""
+    start them anew.  device=None means CUDA.  `mesh` (parallel.Mesh):
+    data parallel over its 'data' axis; a mesh whose 'data' axis holds one
+    rank trains as without one."""
 
     def __init__(self, model, retrain_cfg, model_type: str,
                  input_size=(256, 192), hm_size=(64, 48), sigma=2.0,
                  aug: Optional[AugCfg] = None, joint_pairs=None,
                  seed: int = 166, bf16: bool = False, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel retraining is not ported yet (ROADMAP A14)")
         self.device = resolve_device(device)
         _check_model_device(model, self.device)
         self.model = model
@@ -93,7 +102,9 @@ class Retrainer:
         self.batch_size = retrain_cfg["BATCH_SIZE"]
         self.epoch_counter = 0
         self.rng = np.random.default_rng(seed)
-        self.optimizer = build_optimizer(model, retrain_cfg, model_type)
+        self.mesh = mesh if mesh is not None \
+            and mesh.shape.get("data", 1) > 1 else None
+        self.reset_optimizer()
 
     def reset_schedule(self):
         self.epoch_counter = 0
@@ -101,6 +112,9 @@ class Retrainer:
     def reset_optimizer(self):
         self.optimizer = build_optimizer(self.model, self.cfg,
                                          self.model_type)
+        self._sharded_step = None if self.mesh is None \
+            else build_sharded_train_step(self.model, self.optimizer,
+                                          self.mesh, self._forward)
 
     def _upload(self, a, dtype):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -113,17 +127,20 @@ class Retrainer:
         inv_mats (N, 2, 3) dst->src, joints (N, K, 2) in input space, vis
         (N, K), valid (N,) bool, as tensors on the device or numpy arrays.
         Returns the (2,) device tensor (loss, acc); the gradients stay in
-        the parameters' `.grad`."""
+        the parameters' `.grad`.  Under a mesh the operands are this
+        rank's block of the batch, and loss, acc and the gradients the
+        whole batch's."""
         # K3 writes the bf16 crops as the f32 crop rounded once, as the
         # JAX package casts its f32 crops
         crops = rot_warp_crop(frames, self._upload(frame_idx, torch.int64),
                               self._upload(inv_mats, torch.float32),
                               self.input_size, dtype=self._crop_dtype())
-        return self._fit(crops, joints, vis, valid)
+        return self._fit(crops, joints, vis, valid, self._sharded_step)
 
     def train_step_crops(self, crops_u8, joints, vis, valid):
         """One optimizer step on host-warped uint8 crops (N, oh, ow, 3),
-        normalized on the device; otherwise as `train_step`."""
+        normalized on the device; otherwise as `train_step`, but never
+        sharded."""
         return self._fit(normalize_crops(crops_u8, self.device,
                                          self._crop_dtype()),
                          joints, vis, valid)
@@ -131,7 +148,7 @@ class Retrainer:
     def _crop_dtype(self):
         return torch.bfloat16 if self.bf16 else torch.float32
 
-    def _fit(self, crops, joints, vis, valid):
+    def _fit(self, crops, joints, vis, valid, sharded_step=None):
         f32 = torch.float32
         # (N, oh, ow, 3) is the channels-last layout of (N, 3, oh, ow); a
         # float64 model (a reference step) takes the crops in its dtype
@@ -142,6 +159,9 @@ class Retrainer:
                                      self._upload(vis, f32), self.hm_size,
                                      self.sigma)
         mask = tw[:, :, None, None]
+        if sharded_step is not None:
+            return sharded_step(x, target, mask,
+                                self._upload(valid, torch.bool))
         out = self._forward(x).to(f32)
         loss = masked_heatmap_loss(out, target, mask,
                                    valid=self._upload(valid, torch.bool))
@@ -199,10 +219,15 @@ class Retrainer:
         if fi.min() < 0 or fi.max() >= frames.shape[0]:
             raise IndexError(f"frame index outside [0, {frames.shape[0]})")
         f32 = torch.float32
+        steps = [fi, np.stack(mats), np.stack(joints), np.stack(vis),
+                 np.stack(valid)]
+        if self.mesh is not None:
+            # this rank's block of every step's batch
+            steps = [Sharding(self.mesh, (None, "data")).local(a)
+                     for a in steps]
         fi, mats, joints, vis, valid = (
-            self._upload(np.stack(a), t) for a, t in (
-                (fi, torch.int64), (mats, f32), (joints, f32), (vis, f32),
-                (valid, torch.bool)))
+            self._upload(a, t) for a, t in zip(
+                steps, (torch.int64, f32, f32, f32, torch.bool)))
         stats = []
         was_training = self.model.training
         self.model.train()
@@ -245,6 +270,9 @@ class Retrainer:
                 self.epoch_counter += 1
         finally:
             self.model.train(was_training)
+        if self.mesh is not None:
+            broadcast_module(self.model, self.mesh.group("data"),
+                             self.optimizer)
         loss_avg, acc_avg = _weighted_stats(stats, counts)
         if log:
             log(f"loss: {loss_avg:.7f} | acc: {acc_avg:.4f}")

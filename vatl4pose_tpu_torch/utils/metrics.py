@@ -15,7 +15,8 @@ import torch
 
 from ..ops.heatmap import get_max_pred
 
-__all__ = ["DataLogger", "acc_tensor", "calc_accuracy"]
+__all__ = ["DataLogger", "acc_counts", "acc_from_counts", "acc_tensor",
+           "calc_accuracy"]
 
 
 class DataLogger:
@@ -38,9 +39,10 @@ class DataLogger:
         self.avg = self.sum / self.cnt
 
 
-def acc_tensor(preds, labels, thr: float = 0.5):
-    """preds/labels: (N, K, H, W).  The accuracy as a 0-d float32 tensor on
-    their device (no host sync)."""
+def acc_counts(preds, labels, thr: float = 0.5):
+    """preds/labels: (N, K, H, W).  Per joint, the labels counted (the
+    visible ones) and the predictions within `thr` of them: two (K,)
+    tensors on their device, which add up over the shards of a batch."""
     p, _ = get_max_pred(preds)
     lab, _ = get_max_pred(labels)
     H, W = preds.shape[-2], preds.shape[-1]
@@ -53,10 +55,22 @@ def acc_tensor(preds, labels, thr: float = 0.5):
     dist_cal = dist != -1.0
     num = dist_cal.sum(dim=0)                                 # (K,)
     hit = (dist_cal & (dist < thr)).sum(dim=0)
+    return num, hit
+
+
+def acc_from_counts(num, hit):
+    """The accuracy of `acc_counts`' counts as a 0-d float32 tensor: the
+    mean hit rate over the joints with a counted label, 0 without one."""
     acc = torch.where(num > 0, hit / num.clamp(min=1), -1.0)
     valid = acc >= 0
     mean = torch.where(valid, acc, 0.0).sum() / valid.sum().clamp(min=1)
     return torch.where(valid.any(), mean, 0.0).to(torch.float32)
+
+
+def acc_tensor(preds, labels, thr: float = 0.5):
+    """preds/labels: (N, K, H, W).  The accuracy as a 0-d float32 tensor on
+    their device (no host sync)."""
+    return acc_from_counts(*acc_counts(preds, labels, thr))
 
 
 def calc_accuracy(preds, labels, thr: float = 0.5) -> float:
