@@ -38,10 +38,12 @@ Phases, each of which fails the run on error, each with its wall time:
      fine-tune (AETrainer) and an f32 rescoring pass on the new weights;
      then one train step from the same weights on the card and on the CPU
      (f32, and f64 as the exact step), compared;
-  5. AL loop: the port's CLI loop (run_active_learning's set_dir,
-     prepare_synthetic, do_al and save_result) on the DUW strategy
-     (THC+WPU, Influence, Coreset, continual, seedfix, f32) over the
-     phase-3 video, from phase 3's seeded weights written as a .pth and a
+  5. AL loop: the port's CLI loop (run_active_learning's set_dir, do_al
+     and save_result) on the DUW strategy (THC+WPU, Influence, Coreset,
+     continual, seedfix, f32) over the phase-3 video's files laid out as
+     PoseTrack21's video 000001 (phases 6, 9, 10, 12 and 13 too: the
+     CLI's --synthetic would make the same video again, 35-45 s a loop),
+     from phase 3's seeded weights written as a .pth and a
      seeded AE .pth, on configs/posetrack21/al_simple_posetrack.yaml
      transcribed with one cut (RETRAIN.ALPHA 250 -> 4): 9 rounds and the
      final evaluation.  Checked: result.json's fields, percentages rising
@@ -135,7 +137,17 @@ Phases, each of which fails the run on error, each with its wall time:
      checked as phase 5's, every file written by rank 0, round 0's pass
      against step 1's as step 3 holds it, every rank's final estimator
      and AE bit-identical to rank 0's;
- 14. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+ 14. the library tail, at full width: on (512, 17, 64, 48) f32 heatmaps
+     the integral decode and the L1 joint-regression loss, forward and
+     backward, for the three norm types, on the card against the CPU;
+     flip_heatmap bit-identical to the CPU and, unshifted, its own
+     inverse; phase 3's seeded R50 state_dict through save_checkpoint and
+     load_checkpoint, try_load onto a 14-joint SimplePose-R50 (all but
+     the final layer load) and onto R50 itself (all load), then a THC+WPU
+     pass of 512 with the reloaded weights, bit-identical heatmaps to
+     the pass before the save (deterministic algorithms), K1 4, K2 1, K3
+     1;
+ 15. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -961,20 +973,30 @@ def randomize_(model, gen):
     return model
 
 
+def write_video(out_dir, seed):
+    """VIDEO's synthetic video written under out_dir: the files that the
+    AL CLI's --synthetic --synth_seed <seed> with VIDEO's sizes writes
+    (tests/test_torch_library_tail.py holds them equal).  Returns (root,
+    ann)."""
+    from vatl4pose_tpu_torch.data import make_synthetic_video
+    return make_synthetic_video(out_dir, seed=seed, **VIDEO)
+
+
 def make_video(seed):
     """The main paths' input: a synthetic video of 64 frames x 8 persons
     at 640x360 (512 samples), decoded to (F, H, W, 3) uint8 frames, which
     stay on the card across passes as an AL loop keeps them across rounds;
     with its VideoPoseData, joint pairs, the score() arguments, and its
     files (root, ann) in a directory that lives as long as the namespace
-    (`tmpdir`)."""
+    (`tmpdir`).  The AL loops of phases 5, 6, 9, 10, 12 and 13 read these
+    files (`on_video_files`) instead of making the video again."""
     import types
     import numpy as np
     import torch
-    from vatl4pose_tpu_torch.data import build_dataset, make_synthetic_video
+    from vatl4pose_tpu_torch.data import build_dataset
     tmpdir = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
-    root, ann = make_synthetic_video(tmpdir.name, seed=seed, **VIDEO)
+    root, ann = write_video(tmpdir.name, seed)
     ds = build_dataset({"TYPE": "Posetrack21", "ROOT": root, "ANN": ann})
     frames = ds.load_frames()
     log(f"synthetic video: {len(ds)} samples, {frames.shape[0]} frames "
@@ -1501,6 +1523,48 @@ def write_weights(tmp, cfg, model, ae):
         tmp, "ae", "Hybrid", "WholeBodyAE_zdim4.pth"))
 
 
+def loop_argv(uncertainty="THC+WPU", representativeness="Influence",
+              filter="Coreset",
+              cfg="configs/posetrack21/al_simple_posetrack.yaml", extra=()):
+    """The AL CLI's arguments of the card loops (continual, seedfix) on
+    PoseTrack21's video 000001, which `on_video_files` makes phase 3's
+    video: no --synthetic, whose video is phase 3's (tests/
+    test_torch_library_tail.py) and took 35-45 s to make again."""
+    return ["--cfg", cfg, "--video_id", "000001", "--uncertainty",
+            uncertainty, "--representativeness", representativeness,
+            "--filter", filter, "--continual", "--seedfix", "--memo",
+            "chip_smoke", *extra]
+
+
+def _posetrack_layout(video, root):
+    """Phase 3's video under `root` as the CLI's prepare_dataset_paths
+    finds PoseTrack21's video 000001: its validation annotation and, for
+    --optimize, its train one (symbolic links; the frames' paths are in
+    the annotation, relative to the root)."""
+    src = Path(video.root)
+    root.mkdir()
+    for f in src.iterdir():
+        (root / f.name).symlink_to(f)
+    for ann in ("val/000001_mpii_test.json",
+                "train_val/000001_bonn_train.json"):
+        link = root / "activelearning" / ann
+        link.parent.mkdir(parents=True, exist_ok=True)
+        link.symlink_to(src / video.ann)
+
+
+def on_video_files(video, cfg, tmp, label):
+    """Phase 3's video files laid out under tmp/data (`_posetrack_layout`)
+    and set as both splits' ROOT, so that a loop run with prepare=False
+    reads them.  The links go with tmp; phase 3's files, and the
+    annotation that KEPT copies, stay."""
+    root = Path(tmp) / "data"
+    _posetrack_layout(video, root)
+    for split in ("EVAL", "TRAIN"):
+        cfg.DATASET[split].ROOT = str(root)
+    log(f"{label}: on phase 3's video files ({video.root} as PoseTrack21's "
+        f"000001); no synthetic video made")
+
+
 @contextlib.contextmanager
 def cli_workdir(cfg, argv, tmp, prepare=True):
     """The CLI's set-up in tmp (parse_args, setup_opt, set_dir, and
@@ -1649,10 +1713,10 @@ def loop_report(label, rj, cycles, counts, calls, loop_s, n, rounds, card):
 
 
 def phase_al_loop(video, card, seed, speedup=False):
-    """The port's AL loop through its CLI's functions (set_dir,
-    prepare_synthetic, do_al, save_result): the DUW strategy (THC+WPU,
-    Influence, Coreset, continual, seedfix) on AL_CFG over phase 3's
-    synthetic video, from phase 3's seeded weights written as a .pth and a
+    """The port's AL loop through its CLI's functions (set_dir, do_al,
+    save_result): the DUW strategy (THC+WPU, Influence, Coreset,
+    continual, seedfix) on AL_CFG over phase 3's video files
+    (on_video_files), from phase 3's seeded weights written as a .pth and a
     seeded AE as Hybrid/WholeBodyAE_zdim4.pth; in f32 parity mode, or with
     --speedup (bf16 serving through K1 in bf16, bf16 crops from K3, the
     bf16 retrainer).  The counters are reset before do_al and read after
@@ -1673,18 +1737,10 @@ def phase_al_loop(video, card, seed, speedup=False):
         cfg = Cfg(copy.deepcopy(AL_CFG))
         write_weights(tmp, cfg, model, ae)
         del model, ae
-        argv = [
-            "--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
-            "--video_id", "000001", "--uncertainty", "THC+WPU",
-            "--representativeness", "Influence", "--filter", "Coreset",
-            "--continual", "--seedfix", "--synthetic", "--memo",
-            "chip_smoke", "--synth_seed", str(seed),
-            "--synth_frames", str(VIDEO["num_frames"]),
-            "--synth_persons", str(VIDEO["num_persons"]),
-            "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+        on_video_files(video, cfg, tmp, label)
         rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-            cfg, argv + (["--speedup"] if speedup else []), tmp,
-            keep="p6_speedup" if speedup else "p5")
+            cfg, loop_argv(extra=["--speedup"] if speedup else []), tmp,
+            prepare=False, keep="p6_speedup" if speedup else "p5")
     phase_sums, table, failed = loop_report(label, rj, cycles, counts,
                                             calls, loop_s, n, rounds, card)
     passes, steps = calls.score_calls, calls.train_steps
@@ -2469,17 +2525,10 @@ def phase_other_loops(video, card, seed):
             cfg = Cfg(copy.deepcopy(AL_CFG))
             write_weights(tmp, cfg, model, ae)
             del model, ae
-            argv = [
-                "--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
-                "--video_id", "000001", "--uncertainty", unc,
-                "--representativeness", "None", "--filter", flt,
-                "--continual", "--seedfix", "--synthetic", "--memo",
-                "chip_smoke", "--synth_seed", str(seed),
-                "--synth_frames", str(VIDEO["num_frames"]),
-                "--synth_persons", str(VIDEO["num_persons"]),
-                "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+            on_video_files(video, cfg, tmp, label)
             rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-                cfg, argv, tmp, keep=f"p9_{unc.lower()}")
+                cfg, loop_argv(unc, "None", flt), tmp, prepare=False,
+                keep=f"p9_{unc.lower()}")
         phase_sums, table, failed = loop_report(
             label, rj, cycles, counts, calls, loop_s, n, rounds, card)
         passes, steps = calls.score_calls, calls.train_steps
@@ -2507,10 +2556,10 @@ def phase_other_loops(video, card, seed):
     return out
 
 
-def phase_study(seed):
+def phase_study(video, seed):
     """optimize_alc's study (run_study: the objective, the grid sampler and
     Study.optimize, without the two plots, which need matplotlib) for
-    STUDY_TRIALS trials, each the DUW loop over phase 3's synthetic video
+    STUDY_TRIALS trials, each the DUW loop over phase 3's video files
     with the study's own QUERY_RATIO (6 rounds), from phase 3's seeded
     weights; counters from 0 before it.  Checked: each trial's ALC is
     finite, the trials took the grid's first values, K1, K2 and K3 ran."""
@@ -2524,16 +2573,9 @@ def phase_study(seed):
         cfg = Cfg(copy.deepcopy(AL_CFG))
         write_weights(tmp, cfg, model, ae)
         del model, ae
-        argv = ["--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
-                "--video_id", "000001", "--uncertainty", "THC+WPU",
-                "--representativeness", "Influence", "--filter", "Coreset",
-                "--continual", "--seedfix", "--synthetic", "--optimize",
-                "--search", "grid", "--memo", "chip_smoke",
-                "--synth_seed", str(seed),
-                "--synth_frames", str(VIDEO["num_frames"]),
-                "--synth_persons", str(VIDEO["num_persons"]),
-                "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
-        with cli_workdir(cfg, argv, tmp) as (cfg, opt):
+        on_video_files(video, cfg, tmp, "study")
+        argv = loop_argv(extra=["--optimize", "--search", "grid"])
+        with cli_workdir(cfg, argv, tmp, prepare=False) as (cfg, opt):
             reset_launch_counts()
             t0 = time.perf_counter()
             study = cli.run_study(cfg, opt, [opt.video_id],
@@ -2753,17 +2795,10 @@ def phase_hrnet_loop(video, card, seed):
         cfg = Cfg(copy.deepcopy(HRNET_CFG))
         write_weights(tmp, cfg, model, ae)
         del model, ae
-        argv = [
-            "--cfg", "configs/posetrack21/al_hrnet_posetrack.yaml",
-            "--video_id", "000001", "--uncertainty", "THC+WPU",
-            "--representativeness", "Influence", "--filter", "Coreset",
-            "--continual", "--seedfix", "--synthetic", "--memo",
-            "chip_smoke", "--synth_seed", str(seed),
-            "--synth_frames", str(VIDEO["num_frames"]),
-            "--synth_persons", str(VIDEO["num_persons"]),
-            "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+        on_video_files(video, cfg, tmp, label)
         rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-            cfg, argv, tmp, keep="p10_hrnet")
+            cfg, loop_argv(cfg="configs/posetrack21/al_hrnet_posetrack.yaml"),
+            tmp, prepare=False, keep="p10_hrnet")
     phase_sums, table, failed = loop_report(label, rj, cycles, counts,
                                             calls, loop_s, n, rounds, card)
     passes, steps = calls.score_calls, calls.train_steps
@@ -3324,15 +3359,8 @@ def phase_vis_loop(video, card, seed, al):
         cfg = Cfg(copy.deepcopy(AL_CFG))
         write_weights(tmp, cfg, model, ae)
         del model, ae
-        argv = [
-            "--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
-            "--video_id", "000001", "--uncertainty", "THC+WPU",
-            "--representativeness", "Influence", "--filter", "None",
-            "--continual", "--seedfix", "--synthetic", "--vis", "--memo",
-            "chip_smoke", "--synth_seed", str(seed),
-            "--synth_frames", str(VIDEO["num_frames"]),
-            "--synth_persons", str(VIDEO["num_persons"]),
-            "--synth_size", str(VIDEO["width"]), str(VIDEO["height"])]
+        on_video_files(video, cfg, tmp, label)
+        argv = loop_argv(filter="None", extra=["--vis"])
         passes_hms = []
 
         def keeping(score):
@@ -3343,7 +3371,7 @@ def phase_vis_loop(video, card, seed, al):
             return wrapper
         with patched(scoring.ScoringEngine, "score", keeping):
             rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
-                cfg, argv, tmp, keep="p12_vis")
+                cfg, argv, tmp, prepare=False, keep="p12_vis")
         phase_sums, table, failed = loop_report(
             label, rj, cycles, counts, calls, loop_s, n, rounds, card)
         passes, steps = calls.score_calls, calls.train_steps
@@ -3979,27 +4007,6 @@ def phase_dp_steps(video, card, seed):
                                   for k in r0["pass_launches"]}}}
 
 
-def _dp_loop_argv(extra=()):
-    """Phase 5's CLI arguments, but for --synthetic: phase 3's video is
-    the one that --synthetic makes, and making it again takes 35-45 s."""
-    return ["--cfg", "configs/posetrack21/al_simple_posetrack.yaml",
-            "--video_id", "000001", "--uncertainty", "THC+WPU",
-            "--representativeness", "Influence", "--filter", "Coreset",
-            "--continual", "--seedfix", "--memo", "chip_smoke", *extra]
-
-
-def _posetrack_layout(video, root):
-    """Phase 3's video under `root` as the CLI's prepare_dataset_paths
-    finds a PoseTrack21 validation video 000001 (symbolic links)."""
-    src = Path(video.root)
-    root.mkdir()
-    for f in src.iterdir():
-        (root / f.name).symlink_to(f)
-    ann = root / "activelearning" / "val" / "000001_mpii_test.json"
-    ann.parent.mkdir(parents=True)
-    ann.symlink_to(src / video.ann)
-
-
 def _keep_first_pass(store):
     """A wrapper maker for ScoringEngine.score (`patched`): every pass
     keeps its heatmaps, and the first pass's result is stored on the host
@@ -4065,7 +4072,7 @@ def phase_dp_noop(video, seed, card):
             extra = ["--memo", f"dp_{dp}"] + (["--data_parallel"] if dp
                                                else [])
             passes = []
-            with cli_workdir(copy.deepcopy(base), _dp_loop_argv(extra),
+            with cli_workdir(copy.deepcopy(base), loop_argv(extra=extra),
                              tmp, prepare=False) as (cfg, opt), \
                     deterministic(), \
                     patched(scoring.ScoringEngine, "score",
@@ -4208,7 +4215,7 @@ def phase_dp_loop(video, seed, card, round0):
             cfg.DATASET[split].ROOT = str(tmp / "data")
         spec = _dp_spec("cuda" if torch.cuda.is_available() else "cpu",
                         cfg=dict(cfg),
-                        argv=_dp_loop_argv(["--data_parallel"]),
+                        argv=loop_argv(extra=["--data_parallel"]),
                         out=str(tmp / "out"))
         if spec["device"] == "cpu":
             spec["argv"] += ["--device", "cpu"]
@@ -4295,6 +4302,164 @@ def phase_dp_loop(video, seed, card, round0):
             "passes": r0["passes"], "train_steps": r0["steps"]}
 
 
+# phase 14: the library tail.  The card's f32 reductions sum in another
+# order than the CPU's: the decoded coordinates (in [-0.5, 0.5)) and the
+# maxima within LIB_COORD_ATOL, the loss within LIB_LOSS_RTOL, its
+# gradient within LIB_GRAD_RTOL of the gradient's largest element
+LIB_NORMS = ("softmax", "sigmoid", "divide_sum")
+LIB_COORD_ATOL = 1e-5
+LIB_LOSS_RTOL = 1e-5
+LIB_GRAD_RTOL = 1e-4
+
+
+def phase_library_tail(video, seed, card):
+    """The port's library functions that no CLI path calls, at full width.
+    (1) On seeded (512, 17, 64, 48) f32 maps (uniform in [0, 1): divide_sum
+    divides by the sum), made on the CPU and moved to the card, with
+    seeded (u, v) targets and weights: integral_coords and
+    l1_joint_regression_loss forward and backward for each norm type, the
+    card against the CPU (LIB_*), the card's ms of a loss forward and
+    backward printed.  (2) flip_heatmap with and without the shift
+    bit-identical to the CPU; unshifted, applied twice, the input.
+    (3) Phase 3's seeded R50 state_dict through save_checkpoint (no .pkl
+    suffix: the file is path + .pkl) and load_checkpoint; try_load onto a
+    SimplePose-R50 of 14 joints loads every entry but the final layer's
+    weight and bias, onto R50 itself every entry (num_batches_tracked
+    not counted); a THC+WPU pass of 512 with the reloaded weights, on
+    deterministic algorithms, gives heatmaps bit-identical to the same
+    pass before the save, with K1 4, K2 1 and K3 1 launches (counters
+    reset before it)."""
+    import os
+    import torch
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.kernels import reset_launch_counts
+    from vatl4pose_tpu_torch.models import (SimplePose,
+                                            l1_joint_regression_loss)
+    from vatl4pose_tpu_torch.ops import flip_heatmap, integral_coords
+    from vatl4pose_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                      save_checkpoint,
+                                                      try_load)
+    t_phase = time.perf_counter()
+    failed = []
+    gen = torch.Generator().manual_seed(seed)
+    hms = torch.rand(HM_SHAPE, generator=gen)
+    n, k = HM_SHAPE[:2]
+    uv = torch.rand(n, 2 * k, generator=gen) - 0.5
+    w = (torch.rand(n, 2 * k, generator=gen) > 0.2).float()
+    hms_dev, uv_dev, w_dev = hms.cuda(), uv.cuda(), w.cuda()
+
+    def decode_and_loss(h, uv, w, norm):
+        h = h.detach().requires_grad_(True)
+        coords, maxvals = integral_coords(h.detach(), norm)
+        loss = l1_joint_regression_loss(h, uv, w, norm)
+        loss.backward()
+        return coords, maxvals, loss.detach(), h.grad
+
+    decode = {}
+    for norm in LIB_NORMS:
+        cpu = decode_and_loss(hms, uv, w, norm)
+        dev = [t.cpu() for t in decode_and_loss(hms_dev, uv_dev, w_dev,
+                                                norm)]
+        err = {"coords": (dev[0] - cpu[0]).abs().max().item(),
+               "maxvals": (dev[1] - cpu[1]).abs().max().item(),
+               "loss_rel": ((dev[2] - cpu[2]).abs() / cpu[2].abs()).item(),
+               "grad_rel": ((dev[3] - cpu[3]).abs().max()
+                            / cpu[3].abs().max()).item()}
+        err["ms"] = cuda_ms(lambda: decode_and_loss(hms_dev, uv_dev, w_dev,
+                                                    norm), reps=5)
+        decode[norm] = err
+        log(f"library tail {norm}: card vs CPU on {tuple(HM_SHAPE)} f32: "
+            f"coords {err['coords']:.3e}, maxvals {err['maxvals']:.3e} "
+            f"(bar {LIB_COORD_ATOL}), loss rel {err['loss_rel']:.3e} (bar "
+            f"{LIB_LOSS_RTOL}), grad max|err|/max {err['grad_rel']:.3e} "
+            f"(bar {LIB_GRAD_RTOL}); decode + loss forward and backward "
+            f"{err['ms']:.3f} ms on the card")
+        if not (err["coords"] <= LIB_COORD_ATOL
+                and err["maxvals"] <= LIB_COORD_ATOL
+                and err["loss_rel"] <= LIB_LOSS_RTOL
+                and err["grad_rel"] <= LIB_GRAD_RTOL):
+            failed.append(f"{norm}: card vs CPU {err}")
+
+    flips = {}
+    for shift in (True, False):
+        got = flip_heatmap(hms_dev, video.joint_pairs, shift)
+        flips[shift] = torch.equal(
+            got.cpu(), flip_heatmap(hms, video.joint_pairs, shift))
+    inverse = torch.equal(flip_heatmap(flip_heatmap(
+        hms_dev, video.joint_pairs, False), video.joint_pairs, False),
+        hms_dev)
+    log(f"library tail flip_heatmap: card bit-identical to the CPU (shift "
+        f"True/False) {flips}; unshifted twice gives the input {inverse}")
+    if not all(flips.values()) or not inverse:
+        failed.append(f"flip_heatmap {flips}, inverse {inverse}")
+    del hms_dev, uv_dev, w_dev
+
+    model, ae = make_models(seed)
+    sd = model.state_dict()
+    entries = sum(not key.endswith("num_batches_tracked") for key in sd)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(os.path.join(tmp, "simplepose_r50"), sd)
+        size = os.path.getsize(path)
+        back = load_checkpoint(path)
+    if not path.endswith("simplepose_r50.pkl") or sorted(back) != sorted(sd):
+        failed.append(f"save/load: {path}, {len(back)} of {len(sd)} keys")
+    m14 = SimplePose(**dict(MODEL, num_joints=14), fused_eval=True,
+                     device="cpu").state_dict()
+    merged14, n14 = try_load(m14, back)
+    kept = [key for key in m14 if merged14[key].shape != sd[key].shape
+            or not torch.equal(merged14[key], sd[key])]
+    fresh = SimplePose(**MODEL, fused_eval=True, device="cpu")
+    merged, n_all = try_load(fresh.state_dict(), back)
+    same = all(torch.equal(merged[key], sd[key]) for key in sd)
+    log(f"library tail checkpoint: {len(sd)} entries ({entries} without "
+        f"num_batches_tracked), {size / 1e6:.1f} MB at {path}; try_load "
+        f"onto 14 joints loaded {n14}, kept {kept}; onto R50 loaded "
+        f"{n_all}, equal to the saved weights {same}")
+    if n14 != entries - 2 or sorted(kept) != ["final_layer.bias",
+                                              "final_layer.weight"]:
+        failed.append(f"try_load onto 14 joints: {n14} of {entries}, kept "
+                      f"{kept}")
+    if n_all != entries or not same:
+        failed.append(f"try_load onto R50: {n_all} of {entries}, equal "
+                      f"{same}")
+    fresh.load_state_dict(merged)
+
+    ae.cuda()
+    passes, counts = {}, None
+    for label, net in (("before the save", model), ("reloaded", fresh)):
+        net.cuda()
+        engine = ScoringEngine(net, ScoringConfig(uncertainty="THC+WPU",
+                                                  input_size=INPUT_SIZE),
+                               ae_model=ae, chunk=BATCH)
+        with deterministic():
+            reset_launch_counts()
+            res = engine.score(*video.args, keep_heatmaps=True)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        passes[label] = res["heatmaps"]
+        net.cpu()
+        del engine, res
+    bit = torch.equal(passes["before the save"], passes["reloaded"])
+    want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
+            "rot_warp_crop": 1}
+    log(f"library tail reload: THC+WPU pass of {len(video.data)} with the "
+        f"reloaded weights, heatmaps bit-identical to the pass before the "
+        f"save {bit}; launches {counts} (want {want})")
+    if not bit:
+        failed.append("the reloaded weights' heatmaps differ")
+    if counts != want:
+        failed.append(f"reload pass launches {counts}, want {want}")
+    del passes, model, fresh, ae
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"library tail: {wall:.1f} s ({card})")
+    if failed:
+        raise AssertionError("library tail: " + "; ".join(failed))
+    return {"launches": counts, "decode": decode, "flip_exact": flips,
+            "checkpoint_bytes": size, "try_load_14_joints": n14,
+            "try_load_r50": n_all, "wall_s": wall}
+
+
 def check_outputs(res, n):
     import numpy as np
     shapes = {"coords": (n, 17, 2), "scores": (n, 17), "kpts": (n, 51),
@@ -4378,7 +4543,7 @@ def main(argv=None):
     phase("phase 9: the other strategies")
     other = {"scoring": phase_other_scoring(video, seed),
              "loops": phase_other_loops(video, card, seed),
-             "study": phase_study(seed)}
+             "study": phase_study(video, seed)}
     phase("phase 10: the other models and the plain kernels")
     zoo = {"passes": phase_zoo_passes(video, seed),
            "retrain": phase_zoo_retrain(video, seed),
@@ -4413,11 +4578,15 @@ def main(argv=None):
     dp.update(phase_dp_steps(video, card, seed))
     torch.cuda.empty_cache()
     dp["loop"] = phase_dp_loop(video, seed, card, round0)
-    del video, round0
+    del round0
     log("AL loop --data_parallel wall and split, s: " + json.dumps(
         dict(dp["loop"]["phase_s"], wall=dp["loop"]["loop_s"])) + "; phase "
         "5's " + json.dumps(dict(al["phase_s"], wall=al["loop_s"])))
-    phase("phase 14: result")
+    torch.cuda.empty_cache()
+    phase("phase 14: the library tail")
+    lib = phase_library_tail(video, seed, card)
+    del video
+    phase("phase 15: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
@@ -4456,6 +4625,8 @@ def main(argv=None):
     other_n["dp_train_step"] = dp["step"]["launches"]
     other_n["dp_scoring"] = dp["pass"]["launches"]
     other_n["dp_al_loop"] = dp["loop"]["launches"]
+    # phase 14's pass with the weights reloaded through the checkpoint
+    other_n["library_tail_reload"] = lib["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
@@ -4532,7 +4703,7 @@ def main(argv=None):
                     "al_loop_streaming": stream, "c1_loop": c1,
                     "other_strategies": other, "other_models": zoo,
                     "pretraining": pre, "analysis_and_vis": vis,
-                    "data_parallel": dp,
+                    "data_parallel": dp, "library_tail": lib,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],

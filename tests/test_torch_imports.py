@@ -254,3 +254,45 @@ assert not leaked, leaked
                          cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_library_tail_runs_without_refused_packages(tmp_path):
+    """The checkpoint module is among those imported, and it saves, loads
+    and partially loads a state_dict behind the same finder; the config
+    module imports without PyYAML, and load_config_str (like
+    update_config) imports it only when called."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import os, sys
+import torch
+assert {"vatl4pose_tpu_torch.utils.checkpoint",
+        "vatl4pose_tpu_torch.config"} <= set(names)
+from vatl4pose_tpu_torch import config
+from vatl4pose_tpu_torch.models import SimplePose, build_loss
+from vatl4pose_tpu_torch.ops import flip_heatmap, integral_coords
+from vatl4pose_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint, try_load)
+sd = SimplePose(num_joints=17, num_layers=18, deconv_dim=(8, 8, 8),
+                device="cpu").state_dict()
+back = load_checkpoint(save_checkpoint(os.path.join(sys.argv[1], "ck"), sd))
+target = SimplePose(num_joints=14, num_layers=18, deconv_dim=(8, 8, 8),
+                    device="cpu").state_dict()
+merged, n = try_load(target, back)
+assert n == sum(not k.endswith("num_batches_tracked") for k in sd) - 2
+assert torch.equal(merged["preact.conv1.weight"], sd["preact.conv1.weight"])
+hms = torch.rand(2, 17, 8, 6)
+loss = build_loss({"TYPE": "L1JointRegression"})(
+    hms, torch.zeros(2, 34), torch.ones(2, 34))
+assert torch.isfinite(loss) and integral_coords(hms)[0].shape == (2, 17, 2)
+assert flip_heatmap(hms, [[5, 6]]).shape == hms.shape
+try:
+    config.load_config_str("A: 1")
+    raise AssertionError("load_config_str ran without PyYAML")
+except ImportError as e:
+    assert "yaml" in str(e)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr

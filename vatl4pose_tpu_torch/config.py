@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import copy
 
-__all__ = ["Cfg", "update_config"]
+__all__ = ["Cfg", "update_config", "load_config_str"]
 
 
 class Cfg(dict):
@@ -57,3 +57,9 @@ def update_config(config_file: str) -> Cfg:
     import yaml
     with open(config_file) as f:
         return Cfg(yaml.safe_load(f))
+
+
+def load_config_str(text: str) -> Cfg:
+    """A config from YAML text."""
+    import yaml
+    return Cfg(yaml.safe_load(text))

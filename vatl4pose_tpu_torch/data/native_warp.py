@@ -9,14 +9,17 @@ crop (kernels/rot_warp.py) is float bilinear and differs from mode 1 by up
 to 1 LSB of uint8.
 
 At first use the source is compiled with g++ into
-vatl4pose_tpu_torch/build/ (git-ignored), named by the source's hash; the
-JAX package's library under native/ is never read or written.  A failed
-build raises.
+vatl4pose_tpu_torch/build/ (git-ignored), named by a hash of the source,
+the flags and the compiler's `--version`, so that another compiler builds
+anew; the JAX package's library under native/ is never read or written.
+A failed build raises; `available()` only asks whether the library
+loads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -25,7 +28,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["warp_affine_batch", "lib_path"]
+__all__ = ["warp_affine_batch", "lib_path", "available"]
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "warp" \
     / "warp_affine.cpp"
@@ -36,9 +39,21 @@ _lock = threading.Lock()
 _lib = None
 
 
+def _cxx() -> str:
+    return os.environ.get("CXX", "g++")
+
+
+@functools.lru_cache(maxsize=None)
+def compiler_version(cxx: str) -> str:
+    """What `cxx --version` prints."""
+    return subprocess.run([cxx, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
+        + compiler_version(_cxx()).encode()).hexdigest()[:12]
     return BUILD_DIR / f"libwarp_affine-{digest}.so"
 
 
@@ -52,7 +67,7 @@ def _load():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
-                [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
+                [_cxx(), *CXX_FLAGS, "-o", str(tmp),
                  str(SOURCE)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"host warp build failed (exit "
@@ -68,6 +83,15 @@ def _load():
         lib.warp_affine_batch.restype = None
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the host warp's library builds and loads."""
+    try:
+        _load()
+        return True
+    except Exception:
+        return False
 
 
 def warp_affine_batch(frames: np.ndarray, frame_idx: np.ndarray,

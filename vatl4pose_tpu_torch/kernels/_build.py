@@ -2,7 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/lib<name>-<hash>.so` (the directory is git-ignored), at first use
-and again only when the source changes.  `build()` starts one nvcc per
+and again only when the source, the flags or the toolkit change: the hash
+covers what `nvcc --version` prints, so that a library built by another
+nvcc is never loaded.  `build()` starts one nvcc per
 source, all at once, and waits for them; a failed build raises with
 nvcc's output.  Nothing is built when a module is imported.
 """
@@ -10,6 +12,7 @@ nvcc's output.  Nothing is built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -58,10 +61,18 @@ def _nvcc() -> str:
     return path
 
 
+@functools.lru_cache(maxsize=None)
+def toolkit_version() -> str:
+    """What `nvcc --version` prints."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def lib_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        + toolkit_version().encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

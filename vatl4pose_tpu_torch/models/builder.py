@@ -14,12 +14,13 @@ kernel (models/resnet.py); HRNet ignores `fused_eval`.
 from __future__ import annotations
 
 from ..registry import SPPE
+from .criterion import LOSS_REGISTRY
 from .fastpose import FastPose
 from .hrnet import PoseHighResolutionNet
 from .simplepose import SimplePose
 from .wholebody_ae import WholeBodyAE
 
-__all__ = ["build_sppe", "build_wholebody_ae"]
+__all__ = ["build_sppe", "build_loss", "build_wholebody_ae"]
 
 SPPE.register_module(SimplePose)
 SPPE.register_module(FastPose)
@@ -32,6 +33,11 @@ def build_sppe(model_cfg, preset_cfg, fused_eval: bool = False,
     CUDA."""
     return SPPE.get(model_cfg["TYPE"]).from_cfg(
         model_cfg, preset_cfg, fused_eval=fused_eval, device=device)
+
+
+def build_loss(loss_cfg):
+    """The loss function of LOSS.TYPE (LOSS_REGISTRY)."""
+    return LOSS_REGISTRY[loss_cfg["TYPE"]]
 
 
 def build_wholebody_ae(ae_cfg, input_dim: int = 38,

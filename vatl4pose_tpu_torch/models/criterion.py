@@ -1,16 +1,19 @@
-"""Heatmap losses (counterpart of vatl4pose_tpu/models/criterion.py:
-`mse_loss`, `masked_heatmap_loss`).
+"""Losses (counterpart of vatl4pose_tpu/models/criterion.py).
 
-Parity: the reference's MSELoss call sites (ActiveLearning.py:669,
-posetrack_train.py:52): 0.5 * MSE(out*mask, label*mask), the mean over
-every element of the batch.
+Parity: alphapose/models/criterion.py (MSELoss is the shipped configs'
+loss; L1JointRegression the integral, soft-argmax, regression loss) and
+the MSELoss call sites (ActiveLearning.py:669, posetrack_train.py:52):
+0.5 * MSE(out*mask, label*mask), the mean over every element of the batch.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["mse_loss", "masked_heatmap_loss"]
+from ..ops.heatmap import integral_coords
+
+__all__ = ["mse_loss", "masked_heatmap_loss", "weighted_l1_loss",
+           "l1_joint_regression_loss", "LOSS_REGISTRY"]
 
 
 def mse_loss(pred, target):
@@ -40,3 +43,29 @@ def masked_heatmap_loss(pred, target, target_weight, valid=None,
         n_valid = valid.sum()
     denom = n_valid.clamp(min=1.0) * per_elem.shape[1]
     return 0.5 * total / denom
+
+
+def weighted_l1_loss(pred, target, weight, size_average: bool = True):
+    """|pred - target| * weight summed, divided by the count of positive
+    weights (at least 1) when size_average (criterion.py:85-94)."""
+    total = ((pred - target).abs() * weight).sum()
+    if size_average:
+        return total / (weight > 0).sum().clamp(min=1)
+    return total
+
+
+def l1_joint_regression_loss(hms, target_uv, target_uv_weight,
+                             norm_type: str = "softmax",
+                             size_average: bool = True):
+    """L1JointRegression (criterion.py:46-76): the integral decode of the
+    heatmaps, weighted L1 against (u, v) targets in [-0.5, 0.5) space.
+    hms: (N, K, H, W); target_uv and its weight: (N, 2K)."""
+    coords, _ = integral_coords(hms, norm_type)
+    return weighted_l1_loss(coords.reshape(coords.shape[0], -1), target_uv,
+                            target_uv_weight, size_average)
+
+
+LOSS_REGISTRY = {
+    "MSELoss": masked_heatmap_loss,
+    "L1JointRegression": l1_joint_regression_loss,
+}

@@ -3,8 +3,9 @@
 from .affine import (affine_transform_points, bbox_xyxy_to_xywh,
                      box_to_center_scale, center_scale_to_box,
                      get_affine_transform, transform_preds)
-from .heatmap import (crop_to_image, gaussian_target, get_max_pred,
-                      heatmap_to_coord, subpixel_refine)
+from .heatmap import (crop_to_image, flip_heatmap, gaussian_target,
+                      get_max_pred, heatmap_to_coord, integral_coords,
+                      norm_heatmap, subpixel_refine)
 from .hybrid import ANGLE_TRIANGLES_17, compute_hybrid
 from .oks import (COCO_SIGMAS, COCO_VARS, JRDB_SIGMAS, JRDB_VARS, compute_oks,
                   oks_matrix)

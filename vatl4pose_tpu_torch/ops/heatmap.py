@@ -1,6 +1,6 @@
 """Heatmap targets and decoding on tensors (counterpart of vatl4pose_tpu/
 ops/heatmap.py: `gaussian_target`, `get_max_pred`, `subpixel_refine`,
-`heatmap_to_coord`).
+`heatmap_to_coord`, `norm_heatmap`, `flip_heatmap`, `integral_coords`).
 
 Layout: (..., K, H, W) at the public API (H=64, W=48 for the shipped
 configs).
@@ -13,7 +13,8 @@ import torch
 from .affine import transform_preds
 
 __all__ = ["gaussian_target", "get_max_pred", "subpixel_refine",
-           "heatmap_to_coord", "crop_to_image"]
+           "heatmap_to_coord", "crop_to_image", "norm_heatmap",
+           "flip_heatmap", "integral_coords"]
 
 
 def gaussian_target(joints_xy, joints_vis, hm_size, sigma: float,
@@ -115,3 +116,53 @@ def heatmap_to_coord(hms, bbox_xyxy):
     coords, maxvals = get_max_pred(hms)
     coords = subpixel_refine(hms, coords)
     return crop_to_image(coords, bbox_xyxy, (W, H)), maxvals
+
+
+def norm_heatmap(norm_type: str, heatmap):
+    """softmax, sigmoid or divide_sum over the flattened spatial axes
+    (transforms.py:687-702).  heatmap: (N, K, ...)."""
+    shape = heatmap.shape
+    if norm_type == "softmax":
+        flat = heatmap.reshape(shape[0], shape[1], -1)
+        return torch.softmax(flat, dim=2).reshape(shape)
+    if norm_type == "sigmoid":
+        return torch.sigmoid(heatmap)
+    if norm_type == "divide_sum":
+        flat = heatmap.reshape(shape[0], shape[1], -1)
+        return (flat / flat.sum(dim=2, keepdim=True)).reshape(shape)
+    raise NotImplementedError(norm_type)
+
+
+def flip_heatmap(hms, joint_pairs, shift: bool = True):
+    """Heatmaps flipped along W, the left/right joint channels swapped and,
+    with `shift`, moved one pixel right (out[..., 1:] = flipped[..., :-1],
+    column 0 kept): transforms.py:486-518.  hms: (..., K, H, W)."""
+    hms = torch.as_tensor(hms)
+    perm = list(range(hms.shape[-3]))
+    for a, b in joint_pairs:
+        perm[a], perm[b] = perm[b], perm[a]
+    out = hms.flip(-1).index_select(
+        -3, torch.tensor(perm, device=hms.device))
+    if shift:
+        out = torch.cat([out[..., :1], out[..., :-1]], dim=-1)
+    return out
+
+
+def integral_coords(hms, norm_type: str = "softmax"):
+    """Soft-argmax (integral) decode of (N, K, H, W) heatmaps
+    (transforms.py:645-684, _integral_tensor with hm_depth 1): normalise,
+    divide by the sum, take the marginals' expectations.  Returns
+    (coords (N, K, 2) as (x/W - 0.5, y/H - 0.5), maxvals (N, K): the
+    per-joint maxima for sigmoid, ones otherwise)."""
+    N, K, H, W = hms.shape
+    p = norm_heatmap(norm_type, hms).reshape(N, K, -1)
+    if norm_type == "sigmoid":
+        maxvals = p.amax(dim=2)
+    else:
+        maxvals = torch.ones((N, K), dtype=hms.dtype, device=hms.device)
+    p = (p / p.sum(dim=2, keepdim=True)).reshape(N, K, H, W)
+    hm_x = p.sum(dim=2) * torch.arange(W, dtype=p.dtype, device=p.device)
+    hm_y = p.sum(dim=3) * torch.arange(H, dtype=p.dtype, device=p.device)
+    cx = hm_x.sum(dim=2) / W - 0.5
+    cy = hm_y.sum(dim=2) / H - 0.5
+    return torch.stack([cx, cy], dim=-1), maxvals
