@@ -45,8 +45,9 @@ Phases, each of which fails the run on error, each with its wall time:
      CLI's --synthetic would make the same video again, 35-45 s a loop),
      from phase 3's seeded weights written as a .pth and a
      seeded AE .pth, on configs/posetrack21/al_simple_posetrack.yaml
-     transcribed with one cut (RETRAIN.ALPHA 250 -> 4): 9 rounds and the
-     final evaluation.  Checked: result.json's fields, percentages rising
+     read through the port's YAML reader with the cuts of CONFIG_CUTS
+     (RETRAIN.ALPHA 250 -> 4; the roots and weights each phase sets): 9
+     rounds and the final evaluation.  Checked: result.json's fields, percentages rising
      to 100, every sample queried once, a cycle_times.jsonl line a cycle,
      the launch counters (reset before the loop) at K1 4x, K2 1x and K3 1x
      a scoring pass and K3 once an optimizer step; then the retrained
@@ -81,7 +82,7 @@ Phases, each of which fails the run on error, each with its wall time:
      every round's query holds query_size distinct candidates); two grid
      trials of --optimize's UNC_LAMBDA study (run_study);
  10. the other models: HRNet-W32 (configs/posetrack21/
-     al_hrnet_posetrack.yaml transcribed) and FastPose-R50 (the MODEL of
+     al_hrnet_posetrack.yaml) and FastPose-R50 (the MODEL of
      fastpose_posetrack21.yaml), seeded random weights, built through the
      SPPE registry: a THC+WPU scoring pass of each over phase 3's 512
      samples in f32 and in bf16 (K3 1, K2 1 and K1 4 for FastPose, 0 for
@@ -147,7 +148,23 @@ Phases, each of which fails the run on error, each with its wall time:
      pass of 512 with the reloaded weights, bit-identical heatmaps to
      the pass before the save (deterministic algorithms), K1 4, K2 1, K3
      1;
- 15. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
+ 15. the entry points as a user starts them: every configs/**/*.yaml
+     read through the port's YAML reader (the card's machine is
+     specified without PyYAML);
+     the committed JPEG video (tests/data/jpeg_video: 16 frames of phase
+     3's generator at 640x360, 8 persons, 128 samples, written by cv2 at
+     quality 90, 4:2:0) decoded by the port's JPEG decoder and held
+     against the recorded SHA-256 of cv2's decode, ms a frame on the host;
+     then run_active_learning.main(argv), in this process (so that the
+     launch counters can be read), with the DUW flags on that video laid
+     out as PoseTrack21's video 000001 and --cfg a copy of
+     configs/posetrack21/al_simple_posetrack.yaml whose only changes are
+     entry_cuts (its dict checked equal to the file's elsewhere): checked
+     as phase 5's loop (result.json, cycle_times.jsonl, K1 4x, K2 and K3
+     1x a pass, K3 once a step), each round's query within the pool and
+     disjoint from the samples labeled before; the loop's wall and split
+     beside the card's name and power limit;
+ 16. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -191,35 +208,10 @@ AUG = dict(scale_factor=0.3, rot_factor=40.0, flip=False,
            num_joints_half_body=8, prob_half_body=-1.0)
 AE_LR, AE_EPOCHS = 8e-5, 20
 RETRAIN_EPOCHS = 3
-# configs/posetrack21/al_simple_posetrack.yaml as the AL loop reads it,
-# transcribed (this script may run where PyYAML is missing), with one cut:
-# RETRAIN.ALPHA 250 -> AL_ALPHA, so a continual round retrains at most
-# AL_ALPHA epochs instead of about 250
+# the AL loops' RETRAIN.ALPHA (250 in configs/posetrack21/
+# al_simple_posetrack.yaml): a continual round retrains at most AL_ALPHA
+# epochs instead of about 250 (CONFIG_CUTS)
 AL_ALPHA = 4
-AL_CFG = {
-    "DATASET": {
-        "TRAIN": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
-                  "ANN": "",
-                  "AUG": {"FLIP": False, "ROT_FACTOR": 40,
-                          "SCALE_FACTOR": 0.3, "NUM_JOINTS_HALF_BODY": 8,
-                          "PROB_HALF_BODY": -1}},
-        "EVAL": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
-                 "ANN": ""}},
-    "DATA_PRESET": {"TYPE": "simple", "SIGMA": 2, "NUM_JOINTS": 17,
-                    "IMAGE_SIZE": [256, 192], "HEATMAP_SIZE": [64, 48]},
-    "MODEL": {"TYPE": "SimplePose", "PRETRAINED": "", "TRY_LOAD": "",
-              "NUM_DECONV_FILTERS": [256, 256, 256], "NUM_LAYERS": 50},
-    "LOSS": {"TYPE": "MSELoss"},
-    "AE": {"Z_DIM": 4, "PRETRAINED_ROOT": "", "EPOCH": 20, "LR": 0.00008},
-    "AUXNET": {"PRETRAINED_ROOT": "", "EPOCH": 20, "LR": 0.00008},
-    "RETRAIN": {"BATCH_SIZE": 120, "BASE": 25, "OPTIMIZER": "AdamW",
-                "LR": 0.00025, "ALPHA": AL_ALPHA, "WEIGHT_DECAY": 0.7,
-                "LR_GAMMA": 0.99},
-    "VAL": {"FINISH_ACC": 1, "BATCH_SIZE": 1080, "W_UNC": 0.01,
-            "UNC_LAMBDA": 0.01,
-            "QUERY_RATIO": [0.05, 0.1, 0.15, 0.2, 0.3, 0.4, 0.6, 0.8, 1.0],
-            "VIS": True},
-}
 # the streaming loop (phase 7): a JRDB-Pose-wide video (a stitched frame is
 # 3760x480x3 = 5.41 MB), 96 frames = 0.48 GiB, 8 persons a frame = 768
 # samples (scoring chunks of 512 and 256), on AL_CFG with two cuts:
@@ -252,50 +244,21 @@ STREAM_PRETRAIN_ACC = 0.5
 # first cuBLAS call
 CUBLAS_WORKSPACE = ":4096:8"
 # C1's card-vs-CPU loop (phase 8): configs/synthetic/al_simple_synthetic.
-# yaml transcribed (128x96 input, 32x24 maps, RETRAIN, QUERY_RATIO), with
-# SimplePose-R50 for its R18 (R18's basic blocks never reach K1) and the
-# AE's 2 epochs, on a 48-sample synthetic video
+# yaml (128x96 input, 32x24 maps, RETRAIN, QUERY_RATIO, the AE's 2
+# epochs), with SimplePose-R50 for its R18 (R18's basic blocks never reach
+# K1; CONFIG_CUTS), on a 48-sample synthetic video
 C1_VIDEO = dict(num_frames=12, num_persons=4, width=320, height=240)
 C1_PRETRAIN_EPOCHS = 100
-C1_CFG = copy.deepcopy(AL_CFG)
-C1_CFG["DATA_PRESET"].update(IMAGE_SIZE=[128, 96], HEATMAP_SIZE=[32, 24])
-C1_CFG["AE"].update(EPOCH=2)
-C1_CFG["RETRAIN"].update(BATCH_SIZE=16, BASE=1, ALPHA=2)
-C1_CFG["VAL"].update(BATCH_SIZE=64, QUERY_RATIO=[0.34, 0.67, 1.0],
-                     VIS=False)
 # the pre-training path (phase 11): configs/posetrack21/
-# simplebaseline_posetrack21.yaml transcribed (this script may run where
-# PyYAML is missing): SimplePose-R50 at 256x192, deconv 256x3, 64x48 maps,
-# sigma 2; TRAIN batch 180, Adam at 1e-3, LR_FACTOR 0.1; AUG flip,
-# rotation 40, scale 0.3.  Cuts: the schedule's epochs by 5 (END_EPOCH
-# 200 -> 40, LR_STEP [90, 120] -> [18, 24], DPG_MILESTONE 140 -> 28,
-# DPG_STEP [160, 190] -> [32, 38]), WORLD_SIZE 4 -> one card (BATCH_SIZE
-# is the whole batch, as in the JAX CLI; data parallel is ROADMAP A14);
-# --snapshot 2.  MODEL.PRETRAINED '' -> phase 7's pre-trained weights, in
-# the place of the reference's ImageNet-initialised backbone: from the
-# model's own init no validation gets past an AP of 0.001 in 40 epochs
-# (0 in 8), so that model_best.pth, the evaluation and the hand-off would
-# hold an untrained model; from phase 7's weights 40 epochs reach about
-# 0.5 (8 reach 0.0003; scripts/pretrain_probe.py)
-PRETRAIN_TRAIN = {"WORLD_SIZE": 1, "BATCH_SIZE": 180, "BEGIN_EPOCH": 0,
-                  "END_EPOCH": 40, "OPTIMIZER": "adam", "LR": 0.001,
-                  "LR_FACTOR": 0.1, "LR_STEP": [18, 24],
-                  "DPG_MILESTONE": 28, "DPG_STEP": [32, 38]}
-PRETRAIN_CFG = {
-    "DATASET": {
-        "TRAIN": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
-                  "ANN": "",
-                  "AUG": {"FLIP": True, "ROT_FACTOR": 40,
-                          "SCALE_FACTOR": 0.3, "NUM_JOINTS_HALF_BODY": 8,
-                          "PROB_HALF_BODY": -1}},
-        "TEST": {"TYPE": "Posetrack21", "ROOT": "", "IMG_PREFIX": "",
-                 "ANN": ""}},
-    "DATA_PRESET": AL_CFG["DATA_PRESET"],
-    "MODEL": AL_CFG["MODEL"],
-    "LOSS": {"TYPE": "MSELoss"},
-    "TRAIN": PRETRAIN_TRAIN,
-    "VAL": {"BATCH_SIZE": 320},
-}
+# simplebaseline_posetrack21.yaml: SimplePose-R50 at 256x192, deconv
+# 256x3, 64x48 maps, sigma 2; TRAIN batch 180, Adam at 1e-3, LR_FACTOR
+# 0.1; AUG flip, rotation 40, scale 0.3; its cuts in CONFIG_CUTS.
+# MODEL.PRETRAINED '' -> phase 7's pre-trained weights, in the place of
+# the reference's ImageNet-initialised backbone: from the model's own init
+# no validation gets past an AP of 0.001 in 40 epochs (0 in 8), so that
+# model_best.pth, the evaluation and the hand-off would hold an untrained
+# model; from phase 7's weights 40 epochs reach about 0.5 (8 reach 0.0003;
+# scripts/pretrain_probe.py)
 PRETRAIN_SNAPSHOT = 2
 # the streaming branch: a combined set of three synthetic videos at the
 # three frame sizes of make_synthetic_multivideo (240 samples, two steps
@@ -314,6 +277,79 @@ RESULT_FIELDS = {
     "corrcoef", "true_labeled", "true_unlabeled", "false_labeled",
     "false_unlabeled", "actual_finish", "finished_minerror",
     "finished_oursc", "ospa", "ospa_ann", "moks_queried"}
+
+
+HERE = Path(__file__).resolve().parent
+
+# The configs the phases run, each read from its file in configs/ through
+# the port's own YAML reader (the card's machine has no PyYAML), and every
+# cut made to one, key by key: name -> (file, {key path: value}).
+_AL_CUTS = {
+    # 250 -> AL_ALPHA: a continual round retrains at most AL_ALPHA epochs
+    ("RETRAIN", "ALPHA"): AL_ALPHA,
+    # data/PoseTrack21/ -> '': each phase sets its video's files
+    ("DATASET", "TRAIN", "ROOT"): "",
+    ("DATASET", "EVAL", "ROOT"): "",
+    # the published weights, which the card's machine does not have ->
+    # '': a phase writes seeded or pre-trained weights (write_weights)
+    ("MODEL", "PRETRAINED"): "",
+    ("AE", "PRETRAINED_ROOT"): "",
+}
+CONFIG_CUTS = {
+    # the AL loops (phases 5-7, 9, 12, 13)
+    "AL_CFG": ("configs/posetrack21/al_simple_posetrack.yaml", _AL_CUTS),
+    # C1 (phase 8): R18 -> R50
+    "C1_CFG": ("configs/synthetic/al_simple_synthetic.yaml",
+               {("MODEL", "NUM_LAYERS"): 50}),
+    # pre-training (phases 7 and 11): the schedule's epochs by 5 (END_EPOCH
+    # 200 -> 40, LR_STEP [90, 120] -> [18, 24], DPG_MILESTONE 140 -> 28,
+    # DPG_STEP [160, 190] -> [32, 38]), WORLD_SIZE 4 -> one card
+    # (BATCH_SIZE is the whole batch, as in the JAX CLI); the data's place
+    # -> '': each phase sets its video's files
+    "PRETRAIN_CFG": ("configs/posetrack21/simplebaseline_posetrack21.yaml",
+                     {**{("DATASET", split, key): ""
+                         for split in ("TRAIN", "TEST")
+                         for key in ("ROOT", "ANN")},
+                      ("TRAIN", "WORLD_SIZE"): 1,
+                      ("TRAIN", "END_EPOCH"): 40,
+                      ("TRAIN", "LR_STEP"): [18, 24],
+                      ("TRAIN", "DPG_MILESTONE"): 28,
+                      ("TRAIN", "DPG_STEP"): [32, 38]}),
+    # HRNet's loop (phase 10): the AL loops' cuts, and VAL.VIS false
+    "HRNET_CFG": ("configs/posetrack21/al_hrnet_posetrack.yaml",
+                  {**_AL_CUTS, ("VAL", "VIS"): False}),
+    # FastPose's passes (phase 10) read its MODEL
+    "FASTPOSE_CFG": ("configs/posetrack21/fastpose_posetrack21.yaml", {}),
+}
+
+
+def with_cuts(tree, cuts, source):
+    """`tree` (a nested dict) with each key path of `cuts` set to its
+    value; a path the tree does not have raises KeyError."""
+    for path, value in cuts.items():
+        node = tree
+        for key in path[:-1]:
+            node = node[key]
+        if path[-1] not in node:
+            raise KeyError(f"{source} has no {'.'.join(path)} to cut")
+        node[path[-1]] = copy.deepcopy(value)
+    return tree
+
+
+def repo_config(name):
+    """CONFIG_CUTS[name]: its file read through the port's reader, with
+    its cuts, as a plain dict."""
+    from vatl4pose_tpu_torch.config import parse_yaml
+    rel, cuts = CONFIG_CUTS[name]
+    return with_cuts(parse_yaml((HERE / rel).read_text(), rel), cuts, rel)
+
+
+try:
+    AL_CFG, C1_CFG, PRETRAIN_CFG, HRNET_CFG, FASTPOSE_CFG = (
+        repo_config(name) for name in CONFIG_CUTS)
+except (ImportError, OSError):      # not a checkout: main() refuses it
+    AL_CFG, C1_CFG, PRETRAIN_CFG, HRNET_CFG, FASTPOSE_CFG = {}, {}, {}, {}, {}
+PRETRAIN_TRAIN = PRETRAIN_CFG.get("TRAIN")
 
 
 def log(*a):
@@ -2597,26 +2633,14 @@ def phase_study(video, seed):
             "launches": counts}
 
 
-# phase 10: the other pose models.  configs/posetrack21/
-# al_hrnet_posetrack.yaml as the AL loop reads it, transcribed: AL_CFG
-# with its MODEL (HRNet-W32, the stages of hrnetw32_posetrack21.yaml:
-# 36-57) and AL_CFG's cut (RETRAIN.ALPHA 250 -> AL_ALPHA), plus VAL.VIS
-# false; and configs/posetrack21/fastpose_posetrack21.yaml's MODEL
-# (SE-ResNet-50, CONV_DIM 128 by default) for FastPose's passes
-HRNET_CFG = copy.deepcopy(AL_CFG)
-HRNET_CFG["MODEL"] = {
-    "TYPE": "PoseHighResolutionNet", "PRETRAINED": "", "TRY_LOAD": "",
-    "NUM_LAYERS": 50, "FINAL_CONV_KERNEL": 1, "PRETRAINED_LAYERS": ["*"],
-    **{f"STAGE{s}": {"NUM_MODULES": m, "NUM_BRANCHES": s - 1,
-                     "NUM_BLOCKS": [4] * (s - 1),
-                     "NUM_CHANNELS": [32, 64, 128, 256][:s - 1],
-                     "BLOCK": "BASIC", "FUSE_METHOD": "SUM"}
-       for s, m in ((2, 1), (3, 4), (4, 3))}}
-HRNET_CFG["VAL"]["VIS"] = False
-FASTPOSE_MODEL = {"TYPE": "FastPose", "PRETRAINED": "", "TRY_LOAD": "",
-                  "NUM_DECONV_FILTERS": [256, 256, 256], "NUM_LAYERS": 50}
+# phase 10: the other pose models: configs/posetrack21/
+# al_hrnet_posetrack.yaml as the AL loop reads it (HRNet-W32, the stages
+# of hrnetw32_posetrack21.yaml:36-57; HRNET_CFG) and configs/posetrack21/
+# fastpose_posetrack21.yaml's MODEL (SE-ResNet-50, CONV_DIM 128 by
+# default) for FastPose's passes
+FASTPOSE_MODEL = FASTPOSE_CFG.get("MODEL")
 # (label, MODEL section, K1 launches a scoring pass)
-ZOO = (("HRNet-W32", HRNET_CFG["MODEL"], 0),
+ZOO = (("HRNet-W32", HRNET_CFG.get("MODEL"), 0),
        ("FastPose-R50", FASTPOSE_MODEL, 4))
 
 
@@ -2919,8 +2943,8 @@ def eval_heatmaps(model, frames_dev, d, n=32):
 
 def phase_pretraining(video, card, seed, init_state=None):
     """The pre-training, evaluation and AE-training entry points of a
-    user's workflow before the AL loop, through their functions (the card
-    has no PyYAML: PRETRAIN_CFG transcribes the config):
+    user's workflow before the AL loop, through their functions
+    (PRETRAIN_CFG: the config file with its CONFIG_CUTS):
       - posetrack_train.train at full width on phase 3's video (512
         samples, frames on the card, K3 once an optimizer step at batch
         180), PRETRAIN_TRAIN's cut schedule with its DPG stage, from
@@ -4302,6 +4326,194 @@ def phase_dp_loop(video, seed, card, round0):
             "passes": r0["passes"], "train_steps": r0["steps"]}
 
 
+# ---- phase 15: the entry points as a user starts them ----------------------
+# the committed JPEG video and what the AL CLI's main() reads, on a copy of
+# al_simple_posetrack.yaml whose only changes are entry_cuts (RETRAIN.ALPHA
+# 250 -> AL_ALPHA, both ROOTs -> the video's layout, MODEL.PRETRAINED and
+# AE.PRETRAINED_ROOT -> phase 3's seeded weights written to disk)
+JPEG_VIDEO = "tests/data/jpeg_video"
+JPEG_VIDEO_ANN = "annotations/000001.json"
+ENTRY_CONFIG = "configs/posetrack21/al_simple_posetrack.yaml"
+DECODE_REPEATS = 5
+
+
+def entry_cuts(root, pretrained, ae_root):
+    return {("RETRAIN", "ALPHA"): AL_ALPHA,
+            ("DATASET", "TRAIN", "ROOT"): root,
+            ("DATASET", "EVAL", "ROOT"): root,
+            ("MODEL", "PRETRAINED"): pretrained,
+            ("AE", "PRETRAINED_ROOT"): ae_root}
+
+
+def yaml_with(text, cuts):
+    """YAML text with the scalar at each key path of `cuts` replaced, line
+    for line (comments and layout kept); a path that is not found, or not
+    on a 'key: scalar' line, raises KeyError."""
+    out, stack, done = [], [], set()
+    for line in text.splitlines():
+        body = line.lstrip(" ")
+        if body and not body.startswith(("#", "-")) and ":" in body:
+            indent = len(line) - len(body)
+            key = body.split(":", 1)[0].strip().strip("'\"")
+            while stack and stack[-1][0] >= indent:
+                stack.pop()
+            stack.append((indent, key))
+            path = tuple(k for _, k in stack)
+            if path in cuts and body.split(":", 1)[1].strip():
+                value = cuts[path]
+                if isinstance(value, str):
+                    value = "'" + value.replace("'", "''") + "'"
+                line = f"{' ' * indent}{key}: {value}"
+                done.add(path)
+        out.append(line)
+    if set(cuts) - done:
+        raise KeyError(f"no 'key: scalar' line for {set(cuts) - done}")
+    return "\n".join(out) + "\n"
+
+
+def phase_configs():
+    """Every configs/**/*.yaml read by update_config, as the CLIs read
+    them.  Returns (count, ms)."""
+    from vatl4pose_tpu_torch.config import Cfg, update_config
+    paths = sorted((HERE / "configs").rglob("*.yaml"))
+    t0 = time.perf_counter()
+    cfgs = [update_config(str(p)) for p in paths]
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = [str(p.relative_to(HERE)) for p, c in zip(paths, cfgs)
+           if not isinstance(c, Cfg) or not c.get("MODEL")]
+    if len(paths) < 11 or bad:
+        raise AssertionError(f"configs: {len(paths)} read, without a MODEL "
+                             f"section: {bad}")
+    log(f"configs: {len(paths)} files of configs/ read through the port's "
+        f"YAML reader in {ms:.2f} ms")
+    return len(paths), ms
+
+
+def phase_jpeg_decode():
+    """The committed JPEG video decoded by the port (data/image_io.py,
+    csrc/jpeg_decode.cpp built with g++ here at first use), each frame's
+    RGB held against the SHA-256 of cv2's decode recorded where cv2 is;
+    the first decode's wall (the build included), and the decoder's ms a
+    frame on one thread and on all of them (median of DECODE_REPEATS
+    decodes of the 16 frames)."""
+    import hashlib
+    import os
+    from vatl4pose_tpu_torch.data import image_io
+    root = HERE / JPEG_VIDEO
+    recorded = json.loads((root / "decoded_sha256.json").read_text())
+    paths = [str(root / name) for name in recorded]
+    t0 = time.perf_counter()
+    frames = image_io.read_images(paths, num_threads=1)
+    first_s = time.perf_counter() - t0
+    wrong = [name for (name, digest), img in zip(recorded.items(), frames)
+             if img.shape != (360, 640, 3) or hashlib.sha256(
+                 img.tobytes()).hexdigest() != digest]
+    if len(frames) != 16 or wrong:
+        raise AssertionError(f"JPEG video: {len(frames)} frames, decodes "
+                             f"unlike cv2's: {wrong}")
+    per_frame = {}
+    threads = os.cpu_count() or 1
+    for label, n in (("1_thread", 1), (f"{threads}_threads", threads)):
+        times = []
+        for _ in range(DECODE_REPEATS):
+            t0 = time.perf_counter()
+            image_io.read_images(paths, num_threads=n)
+            times.append(time.perf_counter() - t0)
+        per_frame[label] = statistics.median(times) / len(paths) * 1e3
+    log(f"JPEG video: 16 frames of 640x360 decode to cv2's SHA-256; the "
+        f"first decode, the g++ build included, {first_s:.2f} s; ms a frame "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_frame.items()))
+    return {"frames": len(frames), "first_decode_s": first_s,
+            "ms_per_frame": per_frame}
+
+
+def phase_entry_main(card, seed):
+    """run_active_learning.main(argv) in this process on the JPEG video
+    laid out as PoseTrack21's video 000001, from phase 3's seeded weights
+    written to disk, --cfg a copy of ENTRY_CONFIG with entry_cuts only;
+    checked as phase 5's loop, each round's query within the pool and
+    disjoint from the earlier rounds'."""
+    import os
+    import types
+    import torch
+    from vatl4pose_tpu_torch.cli import run_active_learning as cli
+    from vatl4pose_tpu_torch.config import Cfg, parse_yaml
+    from vatl4pose_tpu_torch.data import build_dataset
+    from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    label = "AL main() on JPEG frames"
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        _posetrack_layout(types.SimpleNamespace(
+            root=str(HERE / JPEG_VIDEO), ann=JPEG_VIDEO_ANN), root)
+        model, ae = make_models(seed)
+        weights = Cfg({"MODEL": {"TYPE": "SimplePose"}, "AE": {}})
+        write_weights(tmp, weights, model, ae)
+        del model, ae
+        cuts = entry_cuts(str(root), weights.MODEL.PRETRAINED,
+                          weights.AE.PRETRAINED_ROOT)
+        text = (HERE / ENTRY_CONFIG).read_text()
+        cfg_path = Path(tmp) / Path(ENTRY_CONFIG).name
+        cfg_path.write_text(yaml_with(text, cuts))
+        want = with_cuts(parse_yaml(text, ENTRY_CONFIG), cuts, ENTRY_CONFIG)
+        if parse_yaml(cfg_path.read_text(), str(cfg_path)) != want:
+            raise AssertionError(f"{label}: the config copy differs from "
+                                 f"{ENTRY_CONFIG} beyond its cuts")
+        n = len(build_dataset({"TYPE": "Posetrack21",
+                               "ROOT": str(HERE / JPEG_VIDEO),
+                               "ANN": JPEG_VIDEO_ANN}))
+        rounds = len(want["VAL"]["QUERY_RATIO"])
+        argv = loop_argv(cfg=str(cfg_path))
+        log(f"{label}: main({' '.join(argv)})")
+        cwd = os.getcwd()
+        os.chdir(tmp)                       # set_dir writes under ./exp
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CallLog() as calls:
+                reset_launch_counts()
+                cli.main(argv)
+                torch.cuda.synchronize()
+                counts = {k.__name__: k.launches for k in KERNELS}
+            loop_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+        runs = sorted((Path(tmp) / "exp").glob(
+            "AL_chip_smoke/SimplePose/*/000001/*/result.json"))
+        if len(runs) != 1:
+            raise AssertionError(f"{label}: {len(runs)} result.json files")
+        rj = json.loads(runs[0].read_text())
+        cycles = [json.loads(line) for line in
+                  (runs[0].parent / "cycle_times.jsonl").read_text()
+                  .splitlines()]
+    phase_sums, table, bad = loop_report(label, rj, cycles, counts, calls,
+                                         loop_s, n, rounds, card)
+    failed += bad
+    labeled = set()
+    for r, query in rj["query_list"].items():
+        outside = [q for q in query if not 0 <= q < n]
+        again = sorted(set(query) & labeled)
+        if outside or again or len(set(query)) != len(query):
+            failed.append(f"round {r}'s query: outside the pool {outside}, "
+                          f"labeled before {again}, {len(query)} entries "
+                          f"for {len(set(query))} samples")
+        labeled |= set(query)
+    passes, steps = calls.score_calls, calls.train_steps
+    want_n = {"fused_bottleneck_chain": 4 * passes,
+              "fused_postprocess": passes, "rot_warp_crop": passes + steps}
+    if passes != rounds + 1 or steps == 0 or counts != want_n:
+        failed.append(f"launches {counts}, want {want_n} for {passes} "
+                      f"passes and {steps} steps")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
+            "samples": n, "launches": counts, "phase_s": phase_sums,
+            "rounds": table}
+
+
 # phase 14: the library tail.  The card's f32 reductions sum in another
 # order than the CPU's: the decoded coordinates (in [-0.5, 0.5)) and the
 # maxima within LIB_COORD_ATOL, the loss within LIB_LOSS_RTOL, its
@@ -4586,7 +4798,15 @@ def main(argv=None):
     phase("phase 14: the library tail")
     lib = phase_library_tail(video, seed, card)
     del video
-    phase("phase 15: result")
+    torch.cuda.empty_cache()
+    phase("phase 15: the entry points as a user starts them")
+    entry = {"configs": phase_configs(), "jpeg": phase_jpeg_decode(),
+             "main": phase_entry_main(card, seed)}
+    log("AL main() on JPEG frames, wall and split, s: " + json.dumps(
+        dict(entry["main"]["phase_s"], wall=entry["main"]["loop_s"]))
+        + "; phase 5's " + json.dumps(dict(al["phase_s"], wall=al["loop_s"]))
+        + f"; {card}")
+    phase("phase 16: result")
 
     # launches by main path, each counted from 0: the scoring passes
     # (phase 3), the retrain (phase 4), the AL loops (phase 5 in f32, 6
@@ -4627,6 +4847,8 @@ def main(argv=None):
     other_n["dp_al_loop"] = dp["loop"]["launches"]
     # phase 14's pass with the weights reloaded through the checkpoint
     other_n["library_tail_reload"] = lib["launches"]
+    # phase 15's loop, started through run_active_learning.main
+    other_n["entry_main_al_loop"] = entry["main"]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":
@@ -4704,6 +4926,7 @@ def main(argv=None):
                     "other_strategies": other, "other_models": zoo,
                     "pretraining": pre, "analysis_and_vis": vis,
                     "data_parallel": dp, "library_tail": lib,
+                    "entry_points": entry,
                     "k1_f32_from_f64": {
                         "random": k1["f32"]["f64_err"],
                         "random_plain": k1["f32"]["plain_f64_err"],

@@ -259,8 +259,8 @@ assert not leaked, leaked
 def test_library_tail_runs_without_refused_packages(tmp_path):
     """The checkpoint module is among those imported, and it saves, loads
     and partially loads a state_dict behind the same finder; the config
-    module imports without PyYAML, and load_config_str (like
-    update_config) imports it only when called."""
+    module imports and load_config_str reads YAML without PyYAML (the
+    port's own reader)."""
     script = _SCRIPT % (REFUSED,) + r"""
 import os, sys
 import torch
@@ -284,11 +284,54 @@ loss = build_loss({"TYPE": "L1JointRegression"})(
     hms, torch.zeros(2, 34), torch.ones(2, 34))
 assert torch.isfinite(loss) and integral_coords(hms)[0].shape == (2, 17, 2)
 assert flip_heatmap(hms, [[5, 6]]).shape == hms.shape
-try:
-    config.load_config_str("A: 1")
-    raise AssertionError("load_config_str ran without PyYAML")
-except ImportError as e:
-    assert "yaml" in str(e)
+assert config.load_config_str("A: 1\nB: [x, 2.5]") == {"A": 1,
+                                                       "B": ["x", 2.5]}
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_config_and_frames_run_without_refused_packages(tmp_path):
+    """The entry points' inputs are read behind the same finder (no yaml,
+    cv2 or PIL): update_config on a config file, decode_frame on the
+    committed JPEG video (its recorded decode hashes) and on a PNG that the
+    synthetic video's png format writes, the resident dataset and the
+    FrameStore over those JPEGs, and prepare_data's image sizes."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import hashlib, json, os, sys
+import numpy as np
+assert "vatl4pose_tpu_torch.data.image_io" in set(names)
+from vatl4pose_tpu_torch.cli import prepare_data
+from vatl4pose_tpu_torch.config import update_config
+from vatl4pose_tpu_torch.data import build_dataset, make_synthetic_video
+from vatl4pose_tpu_torch.data.dataset import decode_frame
+cfg = update_config("configs/posetrack21/al_simple_posetrack.yaml")
+assert cfg.RETRAIN.ALPHA == 250 and cfg.VAL.VIS is True
+assert cfg.DATA_PRESET.IMAGE_SIZE == [256, 192]
+fixture = os.path.join("tests", "data", "jpeg_video")
+with open(os.path.join(fixture, "decoded_sha256.json")) as f:
+    recorded = json.load(f)
+ds = build_dataset({"TYPE": "Posetrack21", "ROOT": fixture,
+                    "ANN": "annotations/000001.json"})
+frames = ds.load_frames()
+store = ds.frame_store()
+for i, (name, digest) in enumerate(recorded.items()):
+    path = os.path.join(fixture, name)
+    assert hashlib.sha256(decode_frame(path).tobytes()).hexdigest() == digest
+    assert (frames[i] == store.get(i)).all()
+    assert prepare_data._img_size(path) == (640, 360)
+tmp = sys.argv[1]
+kw = dict(num_frames=1, num_persons=1, width=40, height=30, seed=2)
+make_synthetic_video(os.path.join(tmp, "npy"), **kw)
+make_synthetic_video(os.path.join(tmp, "png"), img_format="png", **kw)
+png = os.path.join(tmp, "png", "images", "000001", "000000.png")
+want = np.load(os.path.join(tmp, "npy", "images", "000001", "000000.npy"))
+assert (decode_frame(png) == want).all()
+assert prepare_data._img_size(png) == (40, 30)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 """

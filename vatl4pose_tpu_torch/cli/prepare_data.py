@@ -5,9 +5,9 @@ integrate_new_annotation.py, data/jrdb-pose/make_new_annotation.py).
     python -m vatl4pose_tpu_torch.cli.prepare_data posetrack-val \
         --root data/PoseTrack21
 
-Host-only JSON work: no device is involved.  cv2 (which reads the image
-sizes) is imported only inside `_img_size`, since the machine with the
-card has none; the integrate subcommand needs no image.
+Host-only JSON work: no device is involved.  The image sizes come from
+the JPEG and PNG headers (data/image_io.py: no cv2, which the machine with
+the card does not have); the integrate subcommand reads no image.
 
 Subcommands:
   posetrack-val      extract ~30 densely-labeled center frames per val video
@@ -30,10 +30,9 @@ __all__ = ["posetrack_val", "posetrack_train", "integrate", "jrdb", "main"]
 
 
 def _img_size(path):
-    import cv2
-    im = cv2.imread(path)
-    h, w = im.shape[:2]
-    return w, h
+    """(width, height) as cv2.imread's decode would have them."""
+    from ..data.image_io import image_size
+    return image_size(path)
 
 
 def posetrack_val(root: str):

@@ -23,7 +23,7 @@ from ..registry import DATASET
 from .coco_json import CocoJson
 
 __all__ = ["VideoPoseData", "VideoPoseDataset", "Posetrack21", "JRDB2022",
-           "build_dataset", "decode_frame"]
+           "build_dataset", "decode_frame", "decode_frames"]
 
 POSETRACK_JOINT_PAIRS = [[5, 6], [7, 8], [9, 10], [11, 12], [13, 14], [15, 16]]
 JRDB_JOINT_PAIRS = [[1, 2], [0, 4], [3, 4], [8, 10], [5, 7], [10, 13],
@@ -31,13 +31,22 @@ JRDB_JOINT_PAIRS = [[1, 2], [0, 4], [3, 4], [8, 10], [5, 7], [10, 13],
                     [11, 14], [6, 9], [8, 11]]
 
 
+def decode_frames(paths: List[str]) -> List[np.ndarray]:
+    """Decode frames → (H, W, 3) uint8 RGB each: `.npy` arrays as saved,
+    JPEG and PNG files as the JAX package's cv2.imread + BGR->RGB gives
+    them, by the port's own decoders (data/image_io.py; no cv2, which the
+    card's machine does not have), the JPEGs on several threads."""
+    from .image_io import read_images
+    out = [np.load(p) if p.endswith(".npy") else None for p in paths]
+    rest = [i for i, f in enumerate(out) if f is None]
+    for i, img in zip(rest, read_images([paths[i] for i in rest])):
+        out[i] = img
+    return out
+
+
 def decode_frame(path: str) -> np.ndarray:
-    """Decode one frame → (H, W, 3) uint8 RGB.  `.npy` frames need no
-    cv2 (which the card's machine does not have); any other file does."""
-    if path.endswith(".npy"):
-        return np.load(path)
-    import cv2
-    return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+    """Decode one frame → (H, W, 3) uint8 RGB (decode_frames)."""
+    return decode_frames([path])[0]
 
 
 def bbox_clip_xyxy(xyxy, width, height):
@@ -201,7 +210,7 @@ class VideoPoseDataset:
     def load_frames(self) -> np.ndarray:
         """Decode every unique frame once → (F, H, W, 3) uint8 RGB (single
         video, uniform frame size)."""
-        frames = [decode_frame(p) for p in self.data.frame_paths]
+        frames = decode_frames(self.data.frame_paths)
         shapes = {f.shape for f in frames}
         if len(shapes) != 1:
             raise ValueError(

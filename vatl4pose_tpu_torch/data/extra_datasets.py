@@ -20,7 +20,7 @@ import numpy as np
 from ..registry import DATASET
 from .coco_json import CocoJson
 from .dataset import (VideoPoseData, VideoPoseDataset, bbox_clip_xyxy,
-                      bbox_xywh_to_xyxy, build_dataset, decode_frame)
+                      bbox_xywh_to_xyxy, build_dataset, decode_frames)
 
 __all__ = ["Mscoco", "Mpii", "Mscoco_det", "ConcatDataset"]
 
@@ -107,7 +107,7 @@ class Mscoco_det:
         return len(self.frame_idx)
 
     def load_frames(self):
-        frames = [decode_frame(p) for p in self.frame_paths]
+        frames = decode_frames(self.frame_paths)
         if len({f.shape for f in frames}) != 1:
             raise ValueError("mixed frame sizes: use a FrameStore")
         return np.stack(frames).astype(np.uint8)

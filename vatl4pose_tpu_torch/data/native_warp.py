@@ -13,7 +13,8 @@ vatl4pose_tpu_torch/build/ (git-ignored), named by a hash of the source,
 the flags and the compiler's `--version`, so that another compiler builds
 anew; the JAX package's library under native/ is never read or written.
 A failed build raises; `available()` only asks whether the library
-loads.
+loads.  `build_host_library` builds the port's other host C++ (the JPEG
+decoder, data/image_io.py) the same way.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["warp_affine_batch", "lib_path", "available"]
+__all__ = ["warp_affine_batch", "lib_path", "available", "build_host_library",
+           "host_library_path"]
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "warp" \
     / "warp_affine.cpp"
@@ -50,11 +52,35 @@ def compiler_version(cxx: str) -> str:
                           text=True, check=True).stdout
 
 
-def lib_path() -> Path:
+def host_library_path(source: Path, stem: str) -> Path:
+    """Where the g++ build of `source` goes: build/<stem>-<key>.so, the key
+    a hash of the source, the flags and the compiler's `--version`."""
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()
+        source.read_bytes() + " ".join(CXX_FLAGS).encode()
         + compiler_version(_cxx()).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libwarp_affine-{digest}.so"
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def build_host_library(source: Path, stem: str) -> ctypes.CDLL:
+    """`source` compiled with g++ at first use (host_library_path) and
+    loaded; a failed build raises RuntimeError with the compiler's
+    output."""
+    path = host_library_path(source, stem)
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{source.name} build failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+    return ctypes.CDLL(str(path))
+
+
+def lib_path() -> Path:
+    return host_library_path(SOURCE, "warp_affine")
 
 
 def _load():
@@ -62,19 +88,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        path = lib_path()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_cxx(), *CXX_FLAGS, "-o", str(tmp),
-                 str(SOURCE)], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"host warp build failed (exit "
-                                   f"{proc.returncode}):\n{proc.stdout}"
-                                   f"{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
+        lib = build_host_library(SOURCE, "warp_affine")
         lib.warp_affine_batch.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

@@ -17,6 +17,8 @@ from typing import Tuple
 
 import numpy as np
 
+from .image_io import write_png
+
 __all__ = ["make_synthetic_video", "make_synthetic_multivideo"]
 
 # a rough 17-keypoint human template in a unit box (x, y) in [0,1]
@@ -96,7 +98,9 @@ def make_synthetic_video(out_dir: str, num_frames: int = 8,
                          vis_prob: float = 0.9) -> Tuple[str, str]:
     """Write frames + annotation json. Returns (root_dir, ann_relpath).
 
-    img_format: "npy" or "png".  layout: "flat" (images/{video_id}/,
+    img_format: "npy", "png" (8-bit RGB through image_io.write_png: the
+    pixels cv2.imwrite would store, not its bytes, and no cv2) or another
+    extension cv2.imwrite knows.  layout: "flat" (images/{video_id}/,
     annotations/) or "posetrack" (images/val/{video_id}_mpii_test/ and
     activelearning/val/{video_id}_mpii_test.json).  The appearance knobs
     (blob_sigma, blob_amp, channel_shift, bg_level) create domain gaps
@@ -162,7 +166,9 @@ def make_synthetic_video(out_dir: str, num_frames: int = 8,
         img_u8 = np.clip(img, 0, 255).astype(np.uint8)
         if img_format == "npy":
             np.save(os.path.join(out_dir, fname), img_u8)
-        else:
+        elif img_format == "png":
+            write_png(os.path.join(out_dir, fname), img_u8)
+        else:                           # another format needs cv2
             import cv2
             cv2.imwrite(os.path.join(out_dir, fname),
                         cv2.cvtColor(img_u8, cv2.COLOR_RGB2BGR))
