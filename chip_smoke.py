@@ -80,7 +80,9 @@ Phases, each of which fails the run on error, each with its wall time:
      CPU's on the same heatmaps; the loop through the CLI's functions on
      MPE + K-Means and on VL4Pose + weighted (checked as phase 5's, and
      every round's query holds query_size distinct candidates); two grid
-     trials of --optimize's UNC_LAMBDA study (run_study);
+     trials of --optimize's UNC_LAMBDA study through optimize_alc, with
+     its two plots (matplotlib, cv2 and PIL refused at import, as in every
+     figure below: the port draws its own);
  10. the other models: HRNet-W32 (configs/posetrack21/
      al_hrnet_posetrack.yaml) and FastPose-R50 (the MODEL of
      fastpose_posetrack21.yaml), seeded random weights, built through the
@@ -103,18 +105,22 @@ Phases, each of which fails the run on error, each with its wall time:
      streaming branch on a set of three frame sizes; jrdbpose_train's
      guard; poseestimator_eval on model_best.pth; wholebodyAE_train; the
      two checkpoints handed to ActiveLearning's loaders;
- 12. analysis, tracking evaluation and --vis: the DUW loop with --vis
-     (and --filter None: the Coreset filter's cluster figure needs
-     matplotlib, which the card's machine lacks) through the CLI's
-     functions, checked as phase 5's, its per-round dumps (float16
-     heatmaps, ann ids, predictions) decoded on the host against the
-     round's predictions; the arrays the --vis_thc and --vis_wpu hooks
+ 12. analysis, tracking evaluation and --vis: the DUW loop with the main
+     path's flags (--filter Coreset) and --vis through the CLI's
+     functions, checked as phase 5's, Coreset's cluster figure each round
+     (640x480 PNGs with the query markers' red), its per-round dumps
+     (float16 heatmaps, ann ids, predictions) decoded on the host against
+     the round's predictions; the arrays the --vis_thc and --vis_wpu hooks
      draw (vis_thc_inputs, vis_wpu_inputs) on a phase-3 pass on the card;
      then on the host, over the outputs of the card's loops (phases 5, 6,
      9, 10 and 12, kept by KEPT): summarize_result, detailed_result's
-     numbers and the LaTeX table, no figure; pose_track_eval on phase 12's
-     and phase 5's final predictions with the GT track ids, one sequence
-     and two; JRDB AP on phase 7's predictions;
+     numbers and the LaTeX table, then detailed_result.main's and
+     wacv_result.main's figures (PNG, PDF), visualize_result.main
+     --heatmaps on phase 12's work directory and convert_to_eps.main on
+     the figures (each EPS decoded back to its PNG's pixels, each PDF
+     parsed); pose_track_eval on phase 12's and phase 5's final
+     predictions with the GT track ids, one sequence and two; JRDB AP on
+     phase 7's predictions;
  13. data parallel (parallel/, --data_parallel), two gloo ranks sharing
      the one card (NCCL puts no two ranks on one device), at phase 3's
      width and video: (1) ActiveLearning with --data_parallel and no
@@ -163,7 +169,10 @@ Phases, each of which fails the run on error, each with its wall time:
      as phase 5's loop (result.json, cycle_times.jsonl, K1 4x, K2 and K3
      1x a pass, K3 once a step), each round's query within the pool and
      disjoint from the samples labeled before; the loop's wall and split
-     beside the card's name and power limit;
+     beside the card's name and power limit; then main() again with
+     --vis --vis_thc --vis_wpu, QUERY_RATIO cut to its first two entries,
+     checked the same way, with its figures of each kind counted and
+     timed (host ms a figure);
  16. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
@@ -396,6 +405,127 @@ def patched(owner, name, make):
         yield
     finally:
         setattr(owner, name, orig)
+
+
+# the figures: drawn by the port's own raster, plot, PDF and EPS writers
+# (utils/raster.py, utils/figure.py, cli/convert_to_eps.py).  The card's
+# machine is specified without matplotlib, cv2 and PIL, but cv2 and PIL
+# were found importable there, so the figure work runs with them
+# refused at import, by the finder of tests/test_torch_imports.py
+FIGURE_REFUSED = ("matplotlib", "cv2", "PIL")
+
+
+@contextlib.contextmanager
+def refusing(names=FIGURE_REFUSED):
+    """Imports of `names` raise ImportError for the duration (the modules
+    already imported are set aside and put back after)."""
+    import importlib.abc
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in names:
+                raise ImportError(f"refused import of {name}")
+            return None
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules)
+             if m.split(".")[0] in names}
+    finder = Refuse()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(saved)
+
+
+class FigureTimes:
+    """The port's figure functions wrapped to count and time their calls
+    (host ms a figure), by name, for the duration."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.ms = {n: [] for n in names}
+        self._stack = contextlib.ExitStack()
+
+    def _wrap(self, name):
+        def make(fn):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.ms[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+        return make
+
+    def __enter__(self):
+        for n in self.names:
+            self._stack.enter_context(patched(self.module, n, self._wrap(n)))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+
+    def summary(self):
+        return {n: {"count": len(v),
+                    "ms_each": statistics.median(v) if v else None}
+                for n, v in self.ms.items()}
+
+
+def png_pixels(path, size=None):
+    """A figure PNG read back by the port's reader: (H, W, 3) uint8, of
+    `size` (w, h) if given, and not one colour."""
+    from vatl4pose_tpu_torch.data.image_io import read_images
+    img = read_images([str(path)])[0]
+    if size is not None and img.shape[:2] != (size[1], size[0]):
+        raise AssertionError(f"{path}: {img.shape[1]}x{img.shape[0]}, "
+                             f"want {size[0]}x{size[1]}")
+    if not (img != img[0, 0]).any():
+        raise AssertionError(f"{path}: one colour")
+    return img
+
+
+def eps_pixels(path):
+    """The pixels of an EPS that convert_to_eps wrote: its hex body
+    decoded to (H, W, channels)."""
+    import numpy as np
+    data = Path(path).read_bytes()
+    w, h = (int(v) for v in data.split(b"%%BoundingBox: 0 0 ")[1]
+            .split(b"\n")[0].split())
+    ch = 3 if b"false 3 colorimage\n" in data else 1
+    op = b"false 3 colorimage\n" if ch == 3 else b"\nimage\n"
+    body = data[data.index(op) + len(op):data.index(b"\n%%%%EndBinary")]
+    px = np.frombuffer(bytes.fromhex(body.replace(b"\n", b"").decode()),
+                       np.uint8)
+    return px.reshape(h, w, ch) if ch == 3 else px.reshape(h, w)
+
+
+def pdf_image(path):
+    """A one-page PDF of utils/figure.write_pdf parsed: the xref offsets
+    point at their objects, and the page's image inflates to /Width x
+    /Height x 3 bytes.  Returns (MediaBox, (H, W, 3) uint8)."""
+    import re
+    import zlib
+    import numpy as np
+    data = Path(path).read_bytes()
+    start = int(re.search(rb"startxref\s+(\d+)", data).group(1))
+    if data[start:start + 4] != b"xref":
+        raise AssertionError(f"{path}: startxref points at no xref")
+    offsets = [int(v) for v in re.findall(rb"(\d{10}) 00000 n",
+                                          data[start:])]
+    for i, off in enumerate(offsets, 1):
+        if not data[off:].startswith(b"%d 0 obj" % i):
+            raise AssertionError(f"{path}: object {i} not at {off}")
+    box = [float(v) for v in re.search(rb"/MediaBox \[([\d. ]+)\]",
+                                       data).group(1).split()]
+    w = int(re.search(rb"/Width (\d+)", data).group(1))
+    h = int(re.search(rb"/Height (\d+)", data).group(1))
+    i = data.index(b"/Subtype /Image")
+    m = re.search(rb"/Length (\d+) >>\nstream\n", data[i:])
+    s0 = i + m.end()
+    raw = zlib.decompress(data[s0:s0 + int(m.group(1))])
+    if len(raw) != w * h * 3:
+        raise AssertionError(f"{path}: image of {len(raw)} bytes for "
+                             f"{w}x{h}")
+    return box, np.frombuffer(raw, np.uint8).reshape(h, w, 3)
 
 
 def launch_counts():
@@ -2593,13 +2723,16 @@ def phase_other_loops(video, card, seed):
 
 
 def phase_study(video, seed):
-    """optimize_alc's study (run_study: the objective, the grid sampler and
-    Study.optimize, without the two plots, which need matplotlib) for
-    STUDY_TRIALS trials, each the DUW loop over phase 3's video files
-    with the study's own QUERY_RATIO (6 rounds), from phase 3's seeded
-    weights; counters from 0 before it.  Checked: each trial's ALC is
-    finite, the trials took the grid's first values, K1, K2 and K3 ran."""
+    """optimize_alc (run_study: the objective, the grid sampler and
+    Study.optimize, then its two plots, with matplotlib, cv2 and PIL
+    refused) for STUDY_TRIALS trials, each the DUW loop over phase 3's
+    video files with the study's own QUERY_RATIO (6 rounds), from phase
+    3's seeded weights; counters from 0 before it.  Checked: each trial's
+    ALC is finite, the trials took the grid's first values, K1, K2 and K3
+    ran, optuna_history.png (896x672) and optuna_slice.png (700x560) read
+    back, not one colour."""
     import math
+    from vatl4pose_tpu_torch.al import optuna_lite
     import torch
     from vatl4pose_tpu_torch.cli import run_active_learning as cli
     from vatl4pose_tpu_torch.config import Cfg
@@ -2614,23 +2747,30 @@ def phase_study(video, seed):
         with cli_workdir(cfg, argv, tmp, prepare=False) as (cfg, opt):
             reset_launch_counts()
             t0 = time.perf_counter()
-            study = cli.run_study(cfg, opt, [opt.video_id],
-                                  n_trials=STUDY_TRIALS)
+            with refusing(), FigureTimes(optuna_lite.Study, (
+                    "plot_history", "plot_slice")) as figs:
+                study = cli.optimize_alc(cfg, opt, [opt.video_id],
+                                         n_trials=STUDY_TRIALS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = {k.__name__: k.launches for k in KERNELS}
+            import os
+            for name, size in (("optuna_history.png", (896, 672)),
+                               ("optuna_slice.png", (700, 560))):
+                png_pixels(os.path.join(opt.work_dir, name), size)
     hist = study.history()
     log(f"study: {len(hist)} trials in {wall:.2f} s: " + ", ".join(
         f"unc_lambda {p['unc_lambda']} ALC {v:.4f}" for _, p, v in hist)
         + f"; best ALC {study.best_value:.4f} at {study.best_params}; "
-        f"launches {counts}")
+        f"launches {counts}; the two plots, ms each: "
+        + json.dumps(figs.summary()))
     if [p["unc_lambda"] for _, p, _ in hist] != [0.001, 0.01][:STUDY_TRIALS] \
             or not all(math.isfinite(v) for _, _, v in hist) \
             or min(counts.values()) == 0:
         raise AssertionError(f"study: {hist}, launches {counts}")
     return {"wall_s": wall, "trials": [[p, v] for _, p, v in hist],
             "best_value": study.best_value, "best_params": study.best_params,
-            "launches": counts}
+            "launches": counts, "figures": figs.summary()}
 
 
 # phase 10: the other pose models: configs/posetrack21/
@@ -3351,10 +3491,13 @@ def decode_maps(hms, bboxes):
 
 def phase_vis_loop(video, card, seed, al):
     """The DUW loop with --vis through the CLI's functions, as phase 5
-    drives it (AL_CFG, phase 3's video and seeded weights, f32, 9 rounds
-    and the final evaluation) but with --filter None: under Coreset,
-    K-Means and weighted --vis draws the cluster figure (matplotlib).
-    Checked as phase 5's loop (fields, every sample queried once, K1 4x,
+    drives it (AL_CFG, phase 3's video and seeded weights, f32, the main
+    path's flags, --filter Coreset included, 9 rounds and the final
+    evaluation), with matplotlib, cv2 and PIL refused: --vis draws
+    Coreset's cluster figure every round through the port's figure layer.
+    Checked: one cluster figure a round with a non-empty query, each a PNG
+    that image_io reads back at 640x480, not one colour, with the red of
+    the query markers; and as phase 5's loop (fields, every sample queried once, K1 4x,
     K2 1x and K3 1x a pass, K3 once a step, all f32), and every pass's
     dumps: heatmap/Round{r}/heatmaps.npy (N, 17, 64, 48) float16, bit for
     bit the pass's f32 heatmaps rounded to float16 (each pass's heatmaps
@@ -3371,20 +3514,18 @@ def phase_vis_loop(video, card, seed, al):
     import numpy as np
     from vatl4pose_tpu_torch.al import scoring
     from vatl4pose_tpu_torch.config import Cfg
+    from vatl4pose_tpu_torch.utils import vis as vis_mod
     label = "AL loop --vis"
     d = video.data
     n = len(d)
     rounds = len(AL_CFG["VAL"]["QUERY_RATIO"])
-    log(f"{label}: the card's machine has no matplotlib, and under the "
-        f"Coreset, K-Means and weighted filters --vis draws the cluster "
-        f"figure; this loop runs --filter None, which draws no figure")
     with tempfile.TemporaryDirectory() as tmp:
         model, ae = make_models(seed)
         cfg = Cfg(copy.deepcopy(AL_CFG))
         write_weights(tmp, cfg, model, ae)
         del model, ae
         on_video_files(video, cfg, tmp, label)
-        argv = loop_argv(filter="None", extra=["--vis"])
+        argv = loop_argv(extra=["--vis"])
         passes_hms = []
 
         def keeping(score):
@@ -3393,7 +3534,9 @@ def phase_vis_loop(video, card, seed, al):
                 passes_hms.append(res["heatmaps"])
                 return res
             return wrapper
-        with patched(scoring.ScoringEngine, "score", keeping):
+        with patched(scoring.ScoringEngine, "score", keeping), \
+                refusing(), FigureTimes(vis_mod, (
+                    "plot_embedding_selection",)) as figs:
             rj, cycles, counts, by_dtype, calls, loop_s = run_cli_loop(
                 cfg, argv, tmp, prepare=False, keep="p12_vis")
         phase_sums, table, failed = loop_report(
@@ -3409,6 +3552,31 @@ def phase_vis_loop(video, card, seed, al):
                           f"{want_dtype} for {passes} passes and {steps} "
                           f"steps")
         work_dir = KEPT.loops["p12_vis"]["work_dir"]
+        # the cluster figures: one a round that queried
+        queried = sum(1 for q in rj["query_list"].values() if len(q))
+        cdir = os.path.join(work_dir, "cluster")
+        names = sorted(os.listdir(cdir)) if os.path.isdir(cdir) else []
+        red = []
+        for name in names:
+            img = png_pixels(os.path.join(cdir, name), (640, 480))
+            red.append(int((img == (255, 0, 0)).all(2).sum()))
+        if len(names) != queried or not all(
+                x.startswith("Coreset_round") for x in names) \
+                or min(red, default=0) == 0:
+            failed.append(f"cluster figures {names} (red pixels {red}), "
+                          f"want one for each of {queried} queried rounds")
+        log(f"{label}: {len(names)} cluster figures (Coreset), 640x480, "
+            f"query-marker red pixels {red}; host ms a figure "
+            + json.dumps(figs.summary()))
+        # what the analysis phase renders: the final predictions, round
+        # 0's dumps and the cluster figures
+        keep = KEPT.root / "p12_work"
+        (keep / "heatmap").mkdir(parents=True)
+        shutil.copytree(os.path.join(work_dir, "heatmap", "Round0"),
+                        keep / "heatmap" / "Round0")
+        shutil.copy(os.path.join(work_dir, "predicted_kpt.json"), keep)
+        if names:
+            shutil.copytree(cdir, keep / "cluster")
         dumped, shares, shares16, exact = 0, [], [], []
         for r in range(passes):
             hm_dir = os.path.join(work_dir, "heatmap", f"Round{r}")
@@ -3460,7 +3628,8 @@ def phase_vis_loop(video, card, seed, al):
     return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
             "launches": counts, "phase_s": phase_sums, "rounds": table,
             "dumped_bytes": dumped, "decoded_kpts_share": shares,
-            "decoded_dump_kpts_share": shares16}
+            "decoded_dump_kpts_share": shares16,
+            "cluster_figures": figs.summary()}
 
 
 def phase_vis_hooks(video, seed):
@@ -3539,13 +3708,20 @@ def finite(*xs):
     return all(math.isfinite(x) for x in xs)
 
 
-def phase_analysis(card):
+def phase_analysis(source, card):
     """The analysis CLIs over the kept loops' result.json (ANALYSIS_RUNS,
     laid out by KEPT.exp_tree): summarize_result.main, detailed_result's
-    collect, metric_json and summarize_sc, and wacv_result's latex_table,
-    no figure (the card's machine has no matplotlib).  Checked: a row a
-    strategy, every ALC finite, each run's 1001-point curve ending at its
-    loop's last AP (raw and with annotations), a LaTeX row a strategy."""
+    collect, metric_json and summarize_sc, and wacv_result's latex_table;
+    then, with matplotlib, cv2 and PIL refused, the figures:
+    detailed_result.main and wacv_result.main (PNG and PDF),
+    visualize_result.main --heatmaps on phase 12's work directory (a
+    skeleton PNG a frame, round 0's heatmap grids) and convert_to_eps.main
+    on the figure directory.  Checked: a row a strategy, every ALC finite,
+    each run's 1001-point curve ending at its loop's last AP (raw and with
+    annotations), a LaTeX row a strategy; every PNG read back, not one
+    colour; every PDF parsed (xref, MediaBox 460.8 x 345.6, its image
+    inflated); every EPS's hex body decoded to its PNG's pixels; a
+    skeleton PNG a predicted frame at the frame's size."""
     import os
     from vatl4pose_tpu_torch.cli import (detailed_result, summarize_result,
                                          wacv_result)
@@ -3596,11 +3772,74 @@ def phase_analysis(card):
         f"{card}")
     if not os.path.exists(KEPT.root / "summary.json"):
         failed.append("summarize_result wrote no --out")
+    figures = analysis_figures(source, root, failed)
+    log(f"analysis figures (host s, counts): {json.dumps(figures)}; {card}")
     if failed:
         raise AssertionError("analysis CLIs: " + "; ".join(failed))
     return {"wall_s": wall, "alc": {k: v["mean_ALC"]
                                     for k, v in out["alc"].items()},
-            "curve_ends": ends, "sc": sc, "latex_rows": len(rows)}
+            "curve_ends": ends, "sc": sc, "latex_rows": len(rows),
+            "figures": figures}
+
+
+def analysis_figures(source, root, failed):
+    """phase_analysis's figures (see there), phase 12's frames read from
+    the video `source`; appends to `failed`.
+    Returns each step's host s and what it wrote."""
+    import numpy as np
+    from vatl4pose_tpu_torch.cli import (convert_to_eps, detailed_result,
+                                         visualize_result, wacv_result)
+    from vatl4pose_tpu_torch.data.image_io import read_images
+    ana, figs, vis = (KEPT.root / x for x in ("analysis", "figures", "vis"))
+    out, t0 = {}, time.perf_counter()
+    with refusing():
+        detailed_result.main(["--exp_root", str(root), "--out_dir",
+                              str(ana)])
+        out["detailed_result_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wacv_result.main(["--exp_root", str(root), "--out_dir", str(figs)])
+        out["wacv_result_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        visualize_result.main([
+            "--work_dir", str(KEPT.root / "p12_work"), "--dataset_root",
+            str(source.root), "--ann_file",
+            str(KEPT.loops["p12_vis"]["dir"] / "annotations.json"),
+            "--out_dir", str(vis), "--heatmaps", "--round", "0"])
+        out["visualize_result_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eps = convert_to_eps.main(["--dir", str(figs)])
+        out["convert_to_eps_s"] = time.perf_counter() - t0
+    pngs = sorted(ana.rglob("*.png")) + sorted(figs.glob("*.png"))
+    pdfs = sorted(ana.rglob("*.pdf")) + sorted(figs.glob("*.pdf"))
+    for p in pngs:
+        try:
+            png_pixels(p)
+        except AssertionError as e:
+            failed.append(str(e))
+    for p in pdfs:
+        box, _ = pdf_image(p)
+        if [round(v, 3) for v in box] != [0, 0, 460.8, 345.6]:
+            failed.append(f"{p}: MediaBox {box}")
+    for p in eps:
+        png = Path(p).with_suffix(".png")
+        if not np.array_equal(eps_pixels(p), read_images([str(png)])[0]):
+            failed.append(f"{p}: its hex body is not {png.name}'s pixels")
+    preds = json.load(open(KEPT.root / "p12_work" / "predicted_kpt.json"))
+    frames = sorted(vis.glob("*.png"))
+    if len(frames) != len({e["image_id"] for e in preds}):
+        failed.append(f"{len(frames)} skeleton frames")
+    for p in frames[:4]:
+        png_pixels(p, (VIDEO["width"], VIDEO["height"]))
+    grids = sorted((vis / "heatmaps").glob("hm_*.png"))
+    if len(grids) != 8:
+        failed.append(f"{len(grids)} heatmap grids, want 8")
+    for p in grids:
+        png_pixels(p)
+    if len(eps) != len(list(figs.glob("*.png"))) or not pdfs:
+        failed.append(f"{len(eps)} EPS files, {len(pdfs)} PDFs")
+    out.update(pngs=len(pngs), pdfs=len(pdfs), eps=len(eps),
+               skeleton_frames=len(frames), heatmap_grids=len(grids))
+    return out
 
 
 def tracked_sequence(tag, dest):
@@ -4427,13 +4666,24 @@ def phase_jpeg_decode():
             "ms_per_frame": per_frame}
 
 
-def phase_entry_main(card, seed):
+# the second main() of phase 15 draws every figure of the loop: its rounds
+# cut to QUERY_RATIO's first two entries (9 rounds -> 2)
+ENTRY_VIS_QUERY_RATIO = [0.05, 0.1]
+ENTRY_VIS_FLAGS = ["--vis", "--vis_thc", "--vis_wpu"]
+
+
+def phase_entry_main(card, seed, vis=False):
     """run_active_learning.main(argv) in this process on the JPEG video
     laid out as PoseTrack21's video 000001, from phase 3's seeded weights
     written to disk, --cfg a copy of ENTRY_CONFIG with entry_cuts only;
     checked as phase 5's loop, each round's query within the pool and
-    disjoint from the earlier rounds'."""
+    disjoint from the earlier rounds'.  With `vis`, the loop runs with
+    ENTRY_VIS_FLAGS, QUERY_RATIO cut to ENTRY_VIS_QUERY_RATIO, matplotlib,
+    cv2 and PIL refused: the figures of each kind are counted (a THC grid
+    a sample with both neighbours a pass, a WPU scatter a sample a pass, a
+    cluster figure a round that queried), timed, and a few read back."""
     import os
+    from vatl4pose_tpu_torch.utils import vis as vis_mod
     import types
     import torch
     from vatl4pose_tpu_torch.cli import run_active_learning as cli
@@ -4441,8 +4691,10 @@ def phase_entry_main(card, seed):
     from vatl4pose_tpu_torch.data import build_dataset
     from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
 
-    label = "AL main() on JPEG frames"
+    label = "AL main() on JPEG frames" + (
+        " " + " ".join(ENTRY_VIS_FLAGS) if vis else "")
     failed = []
+    figures = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
         _posetrack_layout(types.SimpleNamespace(
@@ -4453,6 +4705,8 @@ def phase_entry_main(card, seed):
         del model, ae
         cuts = entry_cuts(str(root), weights.MODEL.PRETRAINED,
                           weights.AE.PRETRAINED_ROOT)
+        if vis:
+            cuts[("VAL", "QUERY_RATIO")] = list(ENTRY_VIS_QUERY_RATIO)
         text = (HERE / ENTRY_CONFIG).read_text()
         cfg_path = Path(tmp) / Path(ENTRY_CONFIG).name
         cfg_path.write_text(yaml_with(text, cuts))
@@ -4463,15 +4717,24 @@ def phase_entry_main(card, seed):
         n = len(build_dataset({"TYPE": "Posetrack21",
                                "ROOT": str(HERE / JPEG_VIDEO),
                                "ANN": JPEG_VIDEO_ANN}))
-        rounds = len(want["VAL"]["QUERY_RATIO"])
-        argv = loop_argv(cfg=str(cfg_path))
+        # a QUERY_RATIO short of 1.0 ends in one more round that queries
+        # the rest
+        ratios = want["VAL"]["QUERY_RATIO"]
+        rounds = len(ratios) + (ratios[-1] < 1)
+        argv = loop_argv(cfg=str(cfg_path),
+                         extra=ENTRY_VIS_FLAGS if vis else ())
         log(f"{label}: main({' '.join(argv)})")
+        timing = FigureTimes(vis_mod, ("visualize_thc", "visualize_wpu",
+                                       "plot_embedding_selection"))
         cwd = os.getcwd()
         os.chdir(tmp)                       # set_dir writes under ./exp
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with CallLog() as calls:
+            with CallLog() as calls, contextlib.ExitStack() as stack:
+                if vis:
+                    stack.enter_context(refusing())
+                    stack.enter_context(timing)
                 reset_launch_counts()
                 cli.main(argv)
                 torch.cuda.synchronize()
@@ -4489,6 +4752,9 @@ def phase_entry_main(card, seed):
         cycles = [json.loads(line) for line in
                   (runs[0].parent / "cycle_times.jsonl").read_text()
                   .splitlines()]
+        if vis:
+            figures = entry_figures(runs[0].parent, rj, timing, failed)
+            log(f"{label}: figures " + json.dumps(figures) + f"; {card}")
     phase_sums, table, bad = loop_report(label, rj, cycles, counts, calls,
                                          loop_s, n, rounds, card)
     failed += bad
@@ -4511,7 +4777,32 @@ def phase_entry_main(card, seed):
         raise AssertionError(f"{label}: " + "; ".join(failed))
     return {"loop_s": loop_s, "passes": passes, "train_steps": steps,
             "samples": n, "launches": counts, "phase_s": phase_sums,
-            "rounds": table}
+            "rounds": table, "figures": figures}
+
+
+def entry_figures(work_dir, rj, timing, failed):
+    """The figures a --vis --vis_thc --vis_wpu loop wrote under work_dir:
+    counted by kind against the calls the loop made, the first of each
+    kind read back at its size.  Returns {kind: count, ms each}."""
+    kinds = {"visualize_thc": ("vis_thc", "thc_*.png", None),
+             "visualize_wpu": ("vis_wpu", "wpu_*.png", (640, 480)),
+             "plot_embedding_selection": ("cluster", "*.png", (640, 480))}
+    summary = timing.summary()
+    out = {}
+    for name, (sub, pattern, size) in kinds.items():
+        files = sorted((work_dir / sub).rglob(pattern))
+        calls = summary[name]["count"]
+        out[sub] = {"files": len(files), "calls": calls,
+                    "ms_each": summary[name]["ms_each"]}
+        if not files or len(files) > calls:
+            failed.append(f"{sub}: {len(files)} files for {calls} calls")
+            continue
+        png_pixels(files[0], size)
+    queried = sum(1 for q in rj["query_list"].values() if len(q))
+    if out["cluster"]["files"] != queried:
+        failed.append(f"{out['cluster']['files']} cluster figures for "
+                      f"{queried} queried rounds")
+    return out
 
 
 # phase 14: the library tail.  The card's f32 reductions sum in another
@@ -4778,7 +5069,7 @@ def main(argv=None):
     vis = {"loop": phase_vis_loop(video, card, seed, al),
            "hooks": phase_vis_hooks(video, seed)}
     t12 = time.perf_counter()
-    vis["analysis"] = phase_analysis(card)
+    vis["analysis"] = phase_analysis(video, card)
     vis["tracking"] = phase_tracking(card)
     vis["host_s"] = time.perf_counter() - t12
     log(f"phase 12, the analysis CLIs, pose_track_eval and JRDB AP: "
@@ -4802,9 +5093,14 @@ def main(argv=None):
     phase("phase 15: the entry points as a user starts them")
     entry = {"configs": phase_configs(), "jpeg": phase_jpeg_decode(),
              "main": phase_entry_main(card, seed)}
+    entry["main_vis"] = phase_entry_main(card, seed, vis=True)
     log("AL main() on JPEG frames, wall and split, s: " + json.dumps(
         dict(entry["main"]["phase_s"], wall=entry["main"]["loop_s"]))
         + "; phase 5's " + json.dumps(dict(al["phase_s"], wall=al["loop_s"]))
+        + "; with " + " ".join(ENTRY_VIS_FLAGS) + " (QUERY_RATIO "
+        + f"{ENTRY_VIS_QUERY_RATIO}: 3 rounds) "
+        + json.dumps(dict(entry["main_vis"]["phase_s"],
+                          wall=entry["main_vis"]["loop_s"]))
         + f"; {card}")
     phase("phase 16: result")
 
@@ -4847,8 +5143,9 @@ def main(argv=None):
     other_n["dp_al_loop"] = dp["loop"]["launches"]
     # phase 14's pass with the weights reloaded through the checkpoint
     other_n["library_tail_reload"] = lib["launches"]
-    # phase 15's loop, started through run_active_learning.main
+    # phase 15's loops, started through run_active_learning.main
     other_n["entry_main_al_loop"] = entry["main"]["launches"]
+    other_n["entry_main_vis_al_loop"] = entry["main_vis"]["launches"]
     k1_launches = {"f32": {"scoring_f32": counts["f32"]["fused_bottleneck_chain"],
                            "al_loop": al_n["fused_bottleneck_chain"],
                            "al_loop_streaming":

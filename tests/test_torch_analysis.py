@@ -153,20 +153,57 @@ def test_mains_write_the_same_artifacts(exp_tree, tmp_path):
 
 
 def test_convert_to_eps_matches_jax(tmp_path):
-    """The same raster files converted (RGBA and palette images to RGB),
-    the rest skipped."""
+    """The same raster files converted (RGBA, LA and palette images to
+    RGB, gray kept as L), the rest skipped, and each EPS byte for byte the
+    JAX package's (PIL's writer): RGB, RGBA, LA, gray and 1-, 2-, 4- and
+    8-bit palette PNGs, RGB and gray JPEGs."""
     from PIL import Image
+    import cv2
     rng = np.random.default_rng(0)
+    images = {
+        "a.png": Image.fromarray(rng.integers(0, 255, (8, 8, 4), np.uint8)),
+        "c.png": Image.fromarray(rng.integers(0, 255, (9, 13, 3),
+                                              np.uint8)),
+        "d.png": Image.fromarray(rng.integers(0, 255, (9, 13, 2), np.uint8),
+                                 "LA"),
+        "e.png": Image.fromarray(rng.integers(0, 255, (40, 27), np.uint8)),
+    }
+    for bits in (1, 2, 4, 8):
+        n = 1 << bits
+        im = Image.fromarray(rng.integers(0, n, (9, 13), np.uint8), "P")
+        im.putpalette(rng.integers(0, 255, 3 * n, np.uint8).tolist())
+        images[f"p{bits}.png"] = (im, bits)
+    rgb = rng.integers(0, 255, (8, 8, 3), np.uint8)
+    gray = rng.integers(0, 255, (17, 23), np.uint8)
     for tag in ("port", "jax"):
         d = tmp_path / tag
         d.mkdir()
-        Image.fromarray(rng.integers(0, 255, (8, 8, 4), np.uint8)).save(
-            d / "a.png")
-        Image.fromarray(rng.integers(0, 255, (8, 8, 3), np.uint8)).save(
-            d / "b.jpg")
+        for name, im in images.items():
+            if isinstance(im, tuple):
+                im[0].save(d / name, bits=im[1])
+            else:
+                im.save(d / name)
+        cv2.imwrite(str(d / "b.jpg"), rgb[..., ::-1])
+        cv2.imwrite(str(d / "g.jpg"), gray)
         (d / "notes.txt").write_text("not an image")
     got = convert_to_eps.main(["--dir", str(tmp_path / "port")])
     want = jax_eps.main(["--dir", str(tmp_path / "jax")])
-    assert [os.path.basename(p) for p in got] \
-        == [os.path.basename(p) for p in want] == ["a.eps", "b.eps"]
+    names = [os.path.basename(p) for p in got]
+    assert names == [os.path.basename(p) for p in want] == [
+        "a.eps", "b.eps", "c.eps", "d.eps", "e.eps", "g.eps", "p1.eps",
+        "p2.eps", "p4.eps", "p8.eps"]
     assert files_under(tmp_path / "port") == files_under(tmp_path / "jax")
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() \
+            == (tmp_path / "jax" / name).read_bytes(), name
+    for name in ("e.eps", "g.eps"):                # gray stays gray
+        assert b'1 0 1 1 "image"' in (tmp_path / "port" / name).read_bytes()
+
+
+def test_convert_to_eps_refuses_bmp_and_tiff(tmp_path):
+    """BMP and TIFF figures raise ValueError naming the file and the
+    ROADMAP item (the port reads PNG and JPEG only)."""
+    from PIL import Image
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "x.bmp")
+    with pytest.raises(ValueError, match=r"x\.bmp.*A15"):
+        convert_to_eps.main(["--dir", str(tmp_path)])

@@ -499,6 +499,54 @@ def test_png_gray_alpha_and_refusals(tmp_path):
         dataset.decode_frame(str(inter))
 
 
+@pytest.mark.parametrize("short_palette", [False, True],
+                         ids=["full", "short"])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_palette_png_expands_as_pil(tmp_path, bits, short_palette):
+    """read_image_mode keeps a palette PNG's indices at each bit depth
+    (the file's IHDR says so) and palette_to_rgb expands them as PIL's
+    convert("RGB"), indices past a short palette black."""
+    from PIL import Image
+    rng = np.random.default_rng(bits)
+    n = 1 << bits
+    idx = rng.integers(0, n, (11, 29), np.uint8)
+    im = Image.fromarray(idx, "P")
+    entries = max(n - 1, 1) if short_palette else n
+    im.putpalette(rng.integers(0, 255, 3 * entries, np.uint8).tolist())
+    path = tmp_path / "p.png"
+    im.save(path, bits=bits)
+    assert path.read_bytes()[24] == bits            # IHDR's bit depth
+    mode, got, palette = image_io.read_image_mode(str(path))
+    pil = Image.open(path)
+    assert mode == pil.mode == "P"
+    np.testing.assert_array_equal(got, np.asarray(pil))
+    np.testing.assert_array_equal(image_io.palette_to_rgb(got, palette),
+                                  np.asarray(pil.convert("RGB")))
+
+
+def test_read_image_mode_keeps_the_mode(tmp_path):
+    """Each mode as PIL's Image.open gives it: L, LA, RGB and RGBA PNGs,
+    RGB and grayscale JPEGs (no EXIF orientation applied, as PIL)."""
+    from PIL import Image
+    img = sample_image(23, 17)
+    four = np.concatenate([img, img[..., :1]], 2)
+    for mode, arr in (("L", img[..., 0]), ("LA", img[..., :2]),
+                      ("RGB", img), ("RGBA", four)):
+        path = tmp_path / f"{mode}.png"
+        Image.fromarray(np.ascontiguousarray(arr), mode).save(path)
+        got_mode, got, palette = image_io.read_image_mode(str(path))
+        assert got_mode == mode and palette is None
+        np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+    for name, arr in (("rgb.jpg", img[..., ::-1]), ("gray.jpg",
+                                                     img[..., 0])):
+        path = tmp_path / name
+        cv2.imwrite(str(path), np.ascontiguousarray(arr))
+        pil = Image.open(path)
+        got_mode, got, _ = image_io.read_image_mode(str(path))
+        assert got_mode == pil.mode
+        np.testing.assert_array_equal(got, np.asarray(pil))
+
+
 def test_png_writer_and_sizes(tmp_path):
     """image_io.write_png stores the pixels cv2 reads back; the synthetic
     video's png format (no cv2) decodes to its npy frames; prepare_data's

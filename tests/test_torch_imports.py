@@ -1,6 +1,8 @@
 """Every module of vatl4pose_tpu_torch imports without JAX, Flax, the JAX
 package, sklearn, PyYAML, matplotlib, cv2 or PIL: the machine with the card
-has none of them."""
+has none of them.  Since the port draws its own figures (utils/raster.py,
+utils/figure.py), the figure functions and the analysis CLIs run behind
+the refusing finder too."""
 
 import subprocess
 import sys
@@ -84,8 +86,8 @@ assert not leaked, leaked
 def test_strategy_modules_run_without_refused_packages():
     """The modules of the other strategies are among those imported and
     run behind the same finder: the K-Means filter (no sklearn), the
-    UNC_LAMBDA study (its plots need matplotlib, the study does not), the
-    LSH kNN, the AuxNet and VL4Pose's tree score."""
+    UNC_LAMBDA study and its two plots (no matplotlib), the LSH kNN, the
+    AuxNet and VL4Pose's tree score."""
     script = _SCRIPT % (REFUSED,) + r"""
 import numpy as np
 import torch
@@ -105,11 +107,11 @@ study = optuna_lite.create_study(
     sampler=optuna_lite.GridSampler({"x": [0.5, 2.0]}))
 study.optimize(lambda t: -abs(t.suggest_float("x", 0.1, 10) - 2), 2)
 assert study.best_params == {"x": 2.0}
-try:
-    study.plot_history("unused.png")
-    raise AssertionError("plot_history ran without matplotlib")
-except ImportError:
-    pass
+import os, tempfile
+tmp = tempfile.mkdtemp()
+for plot in (study.plot_history, study.plot_slice):
+    path = plot(os.path.join(tmp, plot.__name__ + ".png"))
+    assert open(path, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
 assert ann.LshTransformer(n_neighbors=3).fit_transform(emb).nnz > 0
 params = AuxNet(in_channels=8, device="cpu")(torch.rand(2, 8, 4, 3))
 assert params.shape == (2, 16, 2)
@@ -181,8 +183,8 @@ def test_analysis_modules_run_without_refused_packages(tmp_path):
     among those imported, and their numeric paths run behind the same
     finder: the tracking metrics and JRDB AP through pose_track_eval and
     average_precision_for_loc, the result summaries, detailed_result's
-    numeric artifacts and the LaTeX table; every function that draws
-    raises ImportError there instead."""
+    numeric artifacts and the LaTeX table; and every function that draws
+    (no matplotlib, cv2 or PIL) writes its file there."""
     script = _SCRIPT % (REFUSED,) + r"""
 import json, os, sys
 import numpy as np
@@ -234,18 +236,16 @@ assert "S &" in wacv_result.latex_table(table)
 rd, _ = detailed_result.collect(root)
 alc = detailed_result.metric_json(rd, "AP")["S"]["AP_ALC"]
 assert abs(alc - 0.4) < 1e-12
-for draw in (lambda: detailed_result.main(["--exp_root", root]),
-             lambda: wacv_result.alc_bar_chart(table, tmp),
-             lambda: plot_learning_curves(tmp, "v", "S", [0, 100], [1, 2]),
-             lambda: vis.visualize_wpu(tmp, 1, np.ones(38), np.ones(38), 0.),
-             lambda: vis.vis_frame_fast(np.zeros((4, 4, 3), np.uint8),
-                                        np.ones((17, 3))),
-             lambda: convert_to_eps.main(["--dir", tmp])):
-    try:
-        draw()
-        raise AssertionError("a figure was drawn without its package")
-    except ImportError:
-        pass
+detailed_result.main(["--exp_root", root])
+assert os.path.exists(os.path.join(root, "analysis", "ANN", "AP_ann.pdf"))
+assert os.path.exists(wacv_result.alc_bar_chart(table, tmp))
+assert os.path.exists(plot_learning_curves(tmp, "v", "S", [0, 100], [1, 2]))
+assert os.path.exists(vis.visualize_wpu(tmp, 1, np.ones(38), np.ones(38),
+                                        0.))
+out = vis.vis_frame_fast(np.zeros((4, 4, 3), np.uint8), np.ones((17, 3)))
+assert (out[1, 1] == (255, 0, 0)).all()
+assert [os.path.basename(p) for p in convert_to_eps.main(["--dir", tmp])] \
+    == ["alc_bar.eps", "learning_curve_S_v.eps", "wpu_1.eps"]
 assert os.path.exists(os.path.join(root, "analysis", "sc_summary.json"))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
@@ -338,4 +338,84 @@ assert not leaked, leaked
     out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_figures_run_without_refused_packages(tmp_path):
+    """Every figure function of the port and the mains of detailed_result,
+    wacv_result, visualize_result (--heatmaps) and convert_to_eps run
+    behind the same finder (no matplotlib, cv2 or PIL): each writes its
+    PNG, PDF or EPS, the PNGs decode at figsize x dpi, and the glyph
+    table and colour maps load from the package's data."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import json, os, sys
+import numpy as np
+from vatl4pose_tpu_torch.al import optuna_lite
+from vatl4pose_tpu_torch.al.al_metric import plot_learning_curves
+from vatl4pose_tpu_torch.cli import (convert_to_eps, detailed_result,
+                                     visualize_result, wacv_result)
+from vatl4pose_tpu_torch.data.image_io import read_images, write_png
+from vatl4pose_tpu_torch.utils import vis
+tmp = sys.argv[1]
+rng = np.random.default_rng(0)
+figs = os.path.join(tmp, "figs")
+paths = [vis.visualize_thc(figs, 3, *rng.random((3, 2, 8, 6)), 0.5),
+         vis.visualize_wpu(figs, 3, rng.random(38), rng.random(38), 0.1),
+         vis.plot_embedding_selection(figs, rng.normal(size=(9, 4)), [2],
+                                      "Coreset_round0",
+                                      cluster_idx=np.arange(9) % 2),
+         plot_learning_curves(figs, "v", "S", [0, 50, 100], [5, 30, 40])]
+study = optuna_lite.create_study(
+    sampler=optuna_lite.GridSampler({"x": [0.01, 2.0, 30.0]}))
+study.optimize(lambda t: -abs(t.suggest_float("x", 1e-3, 1e3) - 2), 3)
+paths += [study.plot_history(os.path.join(figs, "h.png")),
+          study.plot_slice(os.path.join(figs, "s.png"))]
+sizes = [(400, 600), (640, 480), (640, 480), (640, 480), (896, 672),
+         (700, 560)]
+for p, size in zip(paths, sizes):
+    img = read_images([p])[0]
+    assert img.shape == (size[1], size[0], 3), (p, img.shape)
+    assert len(np.unique(img.reshape(-1, 3), axis=0)) > 3, p
+run = os.path.join(tmp, "exp", "AL_x", "SimplePose", "S", "000001", "t")
+os.makedirs(run)
+perf = [{k: a for k in detailed_result.METRIC_KEYS} for a in (0.2, 0.6)]
+json.dump({"percentages": [0, 100], "performances": perf,
+           "performances_ann": perf, "mean_uncertaity": [2.0, 1.0],
+           "spearmanr": [0.1, 0.2], "actual_finish": 100,
+           "finished_minerror": 50, "finished_oursc": 100},
+          open(os.path.join(run, "result.json"), "w"))
+root = os.path.join(tmp, "exp")
+detailed_result.main(["--exp_root", root])
+wacv_result.main(["--exp_root", root])
+for name in ("analysis/ANN/AP_ann.png", "analysis/ANN/AP_ann.pdf",
+             "analysis/ANN/uncertainty.pdf", "analysis/spearmanr.png",
+             "figures/alc_bar.png", "figures/AP .5_ann.pdf"):
+    assert os.path.exists(os.path.join(root, name)), name
+work = os.path.join(tmp, "work")
+hm = os.path.join(work, "heatmap", "Round0")
+os.makedirs(hm)
+np.save(os.path.join(hm, "heatmaps.npy"),
+        rng.random((2, 17, 16, 12)).astype(np.float16))
+np.save(os.path.join(hm, "ann_ids.npy"), np.array([4, 8]))
+frame = rng.integers(0, 255, (30, 40, 3), np.uint8)
+write_png(os.path.join(tmp, "f.png"), frame)
+json.dump({"images": [{"id": 1, "file_name": "f.png"}]},
+          open(os.path.join(tmp, "ann.json"), "w"))
+kp = np.concatenate([rng.uniform(0, 40, (17, 2)), np.ones((17, 1))], 1)
+json.dump([{"image_id": 1, "keypoints": kp.ravel().tolist()}],
+          open(os.path.join(work, "predicted_kpt.json"), "w"))
+visualize_result.main(["--work_dir", work, "--dataset_root", tmp,
+                       "--ann_file", "ann.json", "--heatmaps"])
+assert sorted(os.listdir(os.path.join(work, "vis", "heatmaps"))) \
+    == ["hm_4.png", "hm_8.png"]
+drawn = read_images([os.path.join(work, "vis", "1.png")])[0]
+assert drawn.shape == frame.shape and (drawn != frame).any()
+eps = convert_to_eps.main(["--dir", figs])
+assert len(eps) == 6 and all(open(p, "rb").read(4) == b"%!PS" for p in eps)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr

@@ -44,7 +44,7 @@ The port's own design:
     --vis_wpu recomputes the hybrid feature and the AE's reconstruction on
     the device and draws them.  The arrays the two criteria's figures are
     drawn from come from vis_thc_inputs and vis_wpu_inputs; the figures
-    need matplotlib (utils/vis.py imports it inside).
+    are drawn by utils/figure.py (no matplotlib).
   - --data_parallel under torchrun (WORLD_SIZE above 1): one process a
     rank (parallel/mesh.py's process model).  The process group is
     initialised if the caller has not, the loaded weights (estimator, AE,

@@ -4,8 +4,8 @@ vatl4pose_tpu/al/al_metric.py).
 
 compute_alc is active_learning/al_metric.py's sklearn `metrics.auc` on
 0.01x scaled axes, written here as the same trapezoid rule in numpy so
-that the port needs no sklearn.  plot_learning_curves imports matplotlib
-inside.
+that the port needs no sklearn.  plot_learning_curves draws through
+utils/figure.py (no matplotlib).
 """
 
 from __future__ import annotations
@@ -60,9 +60,7 @@ def compute_corr(unc_dict: Dict, oks_dict: Dict) -> float:
 
 def plot_learning_curves(savedir: str, video_id: str, strategy: str,
                          percentages, performances, ann: bool = False) -> str:
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..utils import figure as plt
     fig, ax = plt.subplots()
     ax.set_xlabel("Label Percentage (%)")
     ax.set_ylabel("AP Performance (%)")

@@ -7,8 +7,8 @@ the part of its surface the CLI uses: `create_study`, `Study.optimize`,
 `trial.suggest_float`, `best_value`/`best_params`, a Grid sampler and a TPE
 sampler (Bergstra et al., NeurIPS 2011: the observed trials split into best
 and rest at a gamma-quantile, Parzen windows l(x) and g(x), the candidate
-with the largest l/g proposed).  numpy only; matplotlib is imported inside
-the two plot functions.
+with the largest l/g proposed).  numpy only; the two plots are drawn by
+utils/figure.py.
 """
 
 from __future__ import annotations
@@ -142,9 +142,7 @@ class Study:
 
     def plot_history(self, path: str):
         """Optimization-history figure (optuna.visualization equivalent)."""
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+        from ..utils import figure as plt
         vals = [v for _, v in self.records]
         best = np.maximum.accumulate(vals) if self.direction == "maximize" \
             else np.minimum.accumulate(vals)
@@ -163,9 +161,7 @@ class Study:
         """Per-parameter slice figure (optuna.visualization.plot_slice
         equivalent, Run_active_learning.py:208-209): objective value vs
         each suggested parameter, trial number as the colour scale."""
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+        from ..utils import figure as plt
         names = sorted({n for t, _ in self.records for n in t.params})
         if not names:                      # no suggest_* calls (fixed study)
             names = [None]

@@ -5,8 +5,8 @@ host-only, no device).
     python -m vatl4pose_tpu_torch.cli.detailed_result --exp_root exp
 
 The numeric artifacts (empty_dict.json, result_ann.json, sc_summary.json)
-need numpy only and are written before the figures, which need matplotlib
-(imported inside the functions that draw).
+are written before the figures, which utils/figure.py draws (PNG and a
+one-page raster PDF; no matplotlib).
 
 Feature-complete against the reference's 392-line analyzer:
   - interpolates every learning curve to the 1001-point percentage grid
@@ -156,9 +156,7 @@ def summarize_sc(result_dict):
 def plot_strategy_curves(result_dict, out_dir, metric, ann=True):
     """Per-strategy curve dumps + the combined comparison figure
     (summarize_result, detailed_result.py:155-295).  Saves png+pdf."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..utils import figure as plt
 
     prefix = "_ann" if ann else ""
     fig, ax = plt.subplots()
@@ -195,9 +193,7 @@ def plot_strategy_curves(result_dict, out_dir, metric, ann=True):
 
 def plot_uncertainty_vs_ap(result_dict, out_dir, metric="AP .6", ann=True):
     """Average-uncertainty vs AP trajectory figure (:226-247, :296-316)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..utils import figure as plt
 
     prefix = "_ann" if ann else ""
     fig, ax = plt.subplots()
@@ -226,9 +222,7 @@ def plot_uncertainty_vs_ap(result_dict, out_dir, metric="AP .6", ann=True):
 
 def plot_spearman(result_dict, out_dir):
     """Mean Spearman trajectory per strategy (:318-336)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..utils import figure as plt
 
     fig, ax = plt.subplots()
     plotted = False
@@ -294,7 +288,7 @@ def main(argv=None):
     result_dict, empty_dict = collect(args.exp_root, args.metrics,
                                       video_ids, args.sc_thresh)
     os.makedirs(out_dir, exist_ok=True)
-    # the numeric artifacts first: they need no matplotlib
+    # the numeric artifacts first
     with open(os.path.join(out_dir, "empty_dict.json"), "w") as f:
         json.dump(empty_dict, f, indent=4)
     result_ann_dict = {m: metric_json(result_dict, m, ann=True)

@@ -17,11 +17,11 @@ drops its 'highest' matmul precision; without it every f32 product is
 full f32 (parity mode).  A video whose frames exceed
 VAL.HBM_FRAME_BUDGET_GB streams from host RAM.  --optimize searches
 VAL.UNC_LAMBDA for the best mean ALC (al/optuna_lite.py, TPE or a grid;
-`run_study` needs no matplotlib, `optimize_alc` adds the two plots).
+`optimize_alc` is `run_study` plus the two plots).
 --vis writes each round's heatmaps (float16), ann ids and predictions
 under the work dir and, under the Coreset, K-Means and weighted filters,
 the cluster figure; --vis_thc and --vis_wpu draw the two criteria's
-figures (matplotlib).
+figures (all drawn by utils/figure.py, without matplotlib).
 
 Data parallel, one process a rank (parallel/mesh.py):
 
@@ -352,10 +352,10 @@ def run_study(cfg, opt, video_list, n_trials=None):
     return study
 
 
-def optimize_alc(cfg, opt, video_list):
-    """run_study, then the two figures the reference writes
-    (Run_active_learning.py:205-209; matplotlib)."""
-    study = run_study(cfg, opt, video_list)
+def optimize_alc(cfg, opt, video_list, n_trials=None):
+    """run_study (`n_trials` as there), then the two figures the reference
+    writes (Run_active_learning.py:205-209)."""
+    study = run_study(cfg, opt, video_list, n_trials=n_trials)
     if is_primary():
         study.plot_history(os.path.join(opt.work_dir, "optuna_history.png"))
         study.plot_slice(os.path.join(opt.work_dir, "optuna_slice.png"))

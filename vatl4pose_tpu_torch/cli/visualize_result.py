@@ -5,8 +5,10 @@ scripts/visualize_result.py; host-only, no device).
     python -m vatl4pose_tpu_torch.cli.visualize_result --work_dir RUN \
         --dataset_root ROOT --ann_file ANN [--heatmaps --round R]
 
-Skeletons need cv2, heatmap grids matplotlib (imported inside the
-functions that draw).
+Frames are read by data/image_io.py and the PNGs written by its
+write_png; skeletons are drawn by utils/raster.py (cv2.line and
+cv2.circle to the pixel), heatmap grids by utils/figure.py: no cv2 or
+matplotlib.
 
 Renders predicted skeletons per AL round from a run's predicted_kpt.json and
 the video frames; optionally renders labeled/queried status overlays.
@@ -25,8 +27,8 @@ __all__ = ["render_round", "render_heatmaps", "main"]
 
 def render_round(work_dir: str, dataset_root: str, ann_file: str,
                  out_dir: str, kp_thresh: float = 0.3):
-    import cv2
     from ..data.coco_json import CocoJson
+    from ..data.image_io import read_images, write_png
     from ..utils.vis import vis_frame_fast
     with open(os.path.join(work_dir, "predicted_kpt.json")) as f:
         preds = json.load(f)
@@ -41,12 +43,11 @@ def render_round(work_dir: str, dataset_root: str, ann_file: str,
         if path.endswith(".npy"):
             img = np.load(path)
         else:
-            img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+            img = read_images([path])[0]
         for p in plist:
             kpts = np.asarray(p["keypoints"], np.float32).reshape(-1, 3)
             img = vis_frame_fast(img, kpts, kp_thresh)
-        cv2.imwrite(os.path.join(out_dir, f"{iid}.png"),
-                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        write_png(os.path.join(out_dir, f"{iid}.png"), img)
     return out_dir
 
 
@@ -56,9 +57,7 @@ def render_heatmaps(work_dir: str, out_dir: str, round_idx: int = 0,
     (save_batch_heatmaps parity, scripts/visualize_result.py:100-150:
     one row per sample, one colored panel per joint with the peak marked).
     """
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..utils import figure as plt
     hm_dir = os.path.join(work_dir, "heatmap", f"Round{round_idx}")
     hms = np.load(os.path.join(hm_dir, "heatmaps.npy")).astype(np.float32)
     ann_ids = np.load(os.path.join(hm_dir, "ann_ids.npy"))

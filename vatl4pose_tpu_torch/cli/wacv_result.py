@@ -3,8 +3,8 @@ wacv_result.py; parity: scripts/wacv_result.py; host-only, no device).
 
     python -m vatl4pose_tpu_torch.cli.wacv_result --exp_root exp
 
-The figures need matplotlib; `latex_table` needs nothing beyond the
-summary.
+The figures are drawn by utils/figure.py (no matplotlib); `latex_table`
+needs nothing beyond the summary.
 
 Builds the WACV-style comparison artifacts from accumulated runs: mean
 learning curves per strategy (vs the AP_HR anchor), an ALC bar chart, and a
@@ -24,9 +24,7 @@ __all__ = ["alc_bar_chart", "latex_table", "main"]
 
 
 def alc_bar_chart(table: dict, out_dir: str):
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    from ..utils import figure as plt
     names = list(table)
     vals = [table[k]["mean_ALC"] for k in names]
     errs = [table[k]["std_ALC"] for k in names]

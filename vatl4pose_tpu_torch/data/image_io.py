@@ -19,6 +19,14 @@ decodes them itself, to the same (H, W, 3) uint8 RGB arrays:
   images raise ValueError.
 
 The file's kind comes from its first bytes, as cv2.imread finds it.
+
+`read_image_mode` keeps the file's mode instead, as PIL's Image.open
+gives it (for cli/convert_to_eps.py): "L", "LA", "RGB" or "RGBA" for
+8-bit PNGs, "P" with its palette for palette PNGs of 1, 2, 4 or 8 bits
+(`palette_to_rgb` expands them as PIL's convert("RGB") does: indices
+past the palette are black), and "L" or "RGB" for JPEGs, without the
+EXIF orientation (Image.open does not apply it).  Sub-byte and 16-bit
+gray and colour, and interlaced PNGs raise ValueError.
 """
 
 from __future__ import annotations
@@ -29,11 +37,12 @@ import struct
 import threading
 import zlib
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["read_images", "image_size", "write_png"]
+__all__ = ["read_images", "read_image_mode", "palette_to_rgb", "image_size",
+           "write_png"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "jpeg_decode.cpp"
 _JPEG_MAGIC = b"\xff\xd8"
@@ -79,9 +88,9 @@ def _kind(data: bytes, path) -> str:
 
 # ---- JPEG ------------------------------------------------------------------
 
-def _jpeg_info(data: bytes, path) -> Tuple[int, int, int]:
-    """(width, height, EXIF orientation) from the headers, before the
-    orientation is applied."""
+def _jpeg_info(data: bytes, path) -> Tuple[int, int, int, int]:
+    """(width, height, components, EXIF orientation) from the headers,
+    before the orientation is applied."""
     lib = _load()
     vals = np.zeros(4, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
@@ -90,7 +99,7 @@ def _jpeg_info(data: bytes, path) -> Tuple[int, int, int]:
     if lib.jpeg_info(buf.ctypes.data, len(data), p, p + 4, p + 8, p + 12,
                      err, _ERRLEN):
         raise ValueError(f"{path}: {err.value.decode()}")
-    return int(vals[0]), int(vals[1]), int(vals[3])
+    return int(vals[0]), int(vals[1]), int(vals[2]), int(vals[3])
 
 
 def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
@@ -107,15 +116,15 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def _decode_jpegs(datas: Sequence[bytes], paths, num_threads: int = 0
-                  ) -> List[np.ndarray]:
+def _decode_jpegs(datas: Sequence[bytes], paths, num_threads: int = 0,
+                  orient: bool = True) -> List[np.ndarray]:
     n = len(datas)
     if n == 0:
         return []
     lib = _load()
     infos = [_jpeg_info(d, p) for d, p in zip(datas, paths)]
     bufs = [np.frombuffer(d, np.uint8) for d in datas]
-    outs = [np.empty((h, w, 3), np.uint8) for w, h, _ in infos]
+    outs = [np.empty((h, w, 3), np.uint8) for w, h, _, _ in infos]
     ptrs = np.array([b.ctypes.data for b in bufs], np.uintp)
     sizes = np.array([len(d) for d in datas], np.uintp)
     optrs = np.array([o.ctypes.data for o in outs], np.uintp)
@@ -129,7 +138,9 @@ def _decode_jpegs(datas: Sequence[bytes], paths, num_threads: int = 0
         i = int(np.flatnonzero(status)[0])
         msg = errs.raw[i * _ERRLEN:(i + 1) * _ERRLEN].split(b"\0")[0]
         raise ValueError(f"{paths[i]}: {msg.decode()}")
-    return [_orient(o, info[2]) for o, info in zip(outs, infos)]
+    if not orient:
+        return outs
+    return [_orient(o, info[3]) for o, info in zip(outs, infos)]
 
 
 # ---- PNG -------------------------------------------------------------------
@@ -198,7 +209,48 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int,
     return out[1:]
 
 
-def _decode_png(data: bytes, path) -> np.ndarray:
+def _png_pixels(data: bytes, path):
+    """A PNG's samples as stored: (mode, (H, W) or (H, W, C) uint8,
+    palette or None); palette images at 1, 2, 4 or 8 bits unpacked to one
+    index a pixel."""
+    width, height, depth, ctype, interlace = _png_header(data, path)
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG is not supported")
+    if ctype != 3:
+        return ({0: "L", 2: "RGB", 4: "LA", 6: "RGBA"}.get(ctype, "?"),
+                _decode_png(data, path, keep=True), None)
+    if depth not in (1, 2, 4, 8):
+        raise ValueError(f"{path}: {depth}-bit palette PNG")
+    chunks = list(_png_chunks(data, path))
+    plte = [body for kind, body in chunks if kind == b"PLTE"]
+    if not plte or len(plte[0]) % 3:
+        raise ValueError(f"{path}: palette PNG without a valid PLTE chunk")
+    palette = np.frombuffer(plte[0], np.uint8).reshape(-1, 3)
+    idat = b"".join(body for kind, body in chunks if kind == b"IDAT")
+    try:
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt PNG data ({e})") from None
+    stride = (width * depth + 7) // 8
+    if raw.size != height * (stride + 1):
+        raise ValueError(f"{path}: PNG data of {raw.size} bytes, not "
+                         f"{height * (stride + 1)}")
+    rows = _unfilter(raw, height, stride, 1, path)
+    bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    idx = (bits * weights).sum(2, dtype=np.uint16)[:, :width]
+    return "P", idx.astype(np.uint8), palette
+
+
+def palette_to_rgb(idx: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """Palette indices to (H, W, 3) RGB, as PIL's convert("RGB"): an
+    index past the palette is black."""
+    full = np.zeros((256, 3), np.uint8)
+    full[:len(palette)] = palette[:256]
+    return full[idx]
+
+
+def _decode_png(data: bytes, path, keep: bool = False) -> np.ndarray:
     width, height, depth, ctype, interlace = _png_header(data, path)
     if ctype not in _PNG_CHANNELS:
         raise ValueError(f"{path}: PNG colour type {ctype} (palette) is not "
@@ -220,6 +272,8 @@ def _decode_png(data: bytes, path) -> np.ndarray:
         raise ValueError(f"{path}: PNG data of {raw.size} bytes, not "
                          f"{height * (stride + 1)}")
     px = _unfilter(raw, height, stride, ch, path).reshape(height, width, ch)
+    if keep:                                     # the file's own samples
+        return px[..., 0] if ch == 1 else px
     if ch <= 2:                                  # gray (+ alpha)
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
@@ -227,7 +281,8 @@ def _decode_png(data: bytes, path) -> np.ndarray:
 
 def write_png(path, rgb: np.ndarray) -> None:
     """An (H, W, 3) uint8 RGB image as an 8-bit RGB PNG (filter 0 on
-    every row, zlib's default level)."""
+    every row, zlib level 1: cv2.imwrite's PNG default, a third of the
+    default level's time on a 3400x600 figure)."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"write_png takes (H, W, 3) uint8, not {rgb.shape}")
@@ -242,7 +297,7 @@ def write_png(path, rgb: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(_PNG_MAGIC
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
                 + chunk(b"IEND", b""))
 
 
@@ -267,6 +322,18 @@ def read_images(paths: Sequence[str], num_threads: int = 0
     return out
 
 
+def read_image_mode(path: str) -> Tuple[str, np.ndarray, Optional[np.ndarray]]:
+    """(mode, pixels, palette) as PIL's Image.open gives the file: see the
+    module's docstring."""
+    data = _read(path)
+    if _kind(data, path) == "png":
+        return _png_pixels(data, path)
+    rgb = _decode_jpegs([data], [path], 1, orient=False)[0]
+    if _jpeg_info(data, path)[2] == 1:
+        return "L", np.ascontiguousarray(rgb[..., 0]), None
+    return "RGB", rgb, None
+
+
 def image_size(path: str) -> Tuple[int, int]:
     """(width, height) of the decoded image, from the headers alone: a
     JPEG's frame header with its EXIF orientation (5-8 swap the sides), a
@@ -278,5 +345,5 @@ def image_size(path: str) -> Tuple[int, int]:
             w, h = _png_header(head, path)[:2]
             return int(w), int(h)
         data = head + f.read()
-    w, h, orientation = _jpeg_info(data, path)
+    w, h, _, orientation = _jpeg_info(data, path)
     return (h, w) if orientation in (5, 6, 7, 8) else (w, h)

@@ -1,6 +1,7 @@
 """Visualization: skeleton rendering, THC/WPU diagnostics, embedding
-selections (counterpart of vatl4pose_tpu/utils/vis.py; cv2 and matplotlib
-are imported inside the functions that draw).
+selections (counterpart of vatl4pose_tpu/utils/vis.py), drawn without
+cv2 or matplotlib: the skeleton by utils/raster.py (cv2.line and
+cv2.circle to the pixel), the figures by utils/figure.py.
 
 Parity: alphapose/utils/vis.py:58-275 (vis_frame_fast skeleton overlay) and
 ActiveLearning.py:927-1106 (visualize_thc / visualize_wpu /
@@ -14,6 +15,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from . import figure as plt
+from . import raster
+
 __all__ = ["COCO_PAIRS", "vis_frame_fast", "visualize_thc", "visualize_wpu",
            "plot_embedding_selection"]
 
@@ -26,25 +30,22 @@ def vis_frame_fast(img: np.ndarray, keypoints: np.ndarray,
                    kp_thresh: float = 0.3) -> np.ndarray:
     """Draw a 17-keypoint skeleton on an RGB uint8 image.
     keypoints: (17, 3) = (x, y, score)."""
-    import cv2
     out = np.ascontiguousarray(img.copy())
     for a, b in COCO_PAIRS:
         if keypoints[a, 2] > kp_thresh and keypoints[b, 2] > kp_thresh:
-            cv2.line(out, tuple(keypoints[a, :2].astype(int)),
-                     tuple(keypoints[b, :2].astype(int)), (0, 255, 255), 2)
+            raster.line(out, tuple(keypoints[a, :2].astype(int)),
+                        tuple(keypoints[b, :2].astype(int)), (0, 255, 255),
+                        2)
     for k in range(len(keypoints)):
         if keypoints[k, 2] > kp_thresh:
-            cv2.circle(out, tuple(keypoints[k, :2].astype(int)), 3,
-                       (255, 0, 0), -1)
+            raster.circle(out, tuple(keypoints[k, :2].astype(int)), 3,
+                          (255, 0, 0))
     return out
 
 
 def visualize_thc(save_dir: str, ann_id: int, hm_prev, hm_cur, hm_next,
                   thc: float):
     """Per-joint 3-frame heatmap grid (ActiveLearning.py:927-998)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
     K = hm_cur.shape[0]
     fig, axes = plt.subplots(3, K, figsize=(2 * K, 6))
     for row, hms in enumerate((hm_prev, hm_cur, hm_next)):
@@ -64,9 +65,6 @@ def visualize_thc(save_dir: str, ann_id: int, hm_prev, hm_cur, hm_next,
 def visualize_wpu(save_dir: str, ann_id: int, feat_in: np.ndarray,
                   feat_out: np.ndarray, wpu: float):
     """Input/output hybrid-feature skeleton scatter (:1000-1036)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
     n_kp = (len(feat_in) - 8) // 2
     fig, ax = plt.subplots()
     ax.scatter(feat_in[:n_kp], -feat_in[n_kp:2 * n_kp], label="input")
@@ -87,9 +85,6 @@ def plot_embedding_selection(save_dir: str, embeddings: np.ndarray,
     """2-D embedding scatter with selected queries highlighted
     (pltcluster_and_save / pltcoreset_and_save, :1038-1106; PCA instead of
     UMAP — umap is not available in this environment)."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
     x = embeddings - embeddings.mean(0)
     u, s, vt = np.linalg.svd(x, full_matrices=False)
     p2 = x @ vt[:2].T
