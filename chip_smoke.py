@@ -161,9 +161,13 @@ Phases, each of which fails the run on error, each with its wall time:
      3's generator at 640x360, 8 persons, 128 samples, written by cv2 at
      quality 90, 4:2:0) decoded by the port's JPEG decoder and held
      against the recorded SHA-256 of cv2's decode, ms a frame on the host;
+     the same 16 frames (phase 3's video begins with them) written again
+     by the port's JPEG encoder at quality 90, 4:2:0, each file equal to
+     the committed one byte for byte, ms a frame on the host;
      then run_active_learning.main(argv), in this process (so that the
-     launch counters can be read), with the DUW flags on that video laid
-     out as PoseTrack21's video 000001 and --cfg a copy of
+     launch counters can be read), with the DUW flags on the frames the
+     encoder wrote, laid out as PoseTrack21's video 000001, matplotlib,
+     cv2 and PIL refused, and --cfg a copy of
      configs/posetrack21/al_simple_posetrack.yaml whose only changes are
      entry_cuts (its dict checked equal to the file's elsewhere): checked
      as phase 5's loop (result.json, cycle_times.jsonl, K1 4x, K2 and K3
@@ -171,8 +175,12 @@ Phases, each of which fails the run on error, each with its wall time:
      disjoint from the samples labeled before; the loop's wall and split
      beside the card's name and power limit; then main() again with
      --vis --vis_thc --vis_wpu, QUERY_RATIO cut to its first two entries,
-     checked the same way, with its figures of each kind counted and
-     timed (host ms a figure);
+     checked the same way (on the committed files), with its figures of
+     each kind counted and timed (host ms a figure); last the format
+     fixtures (tests/data/formats: BMP, TIFF, PNG and progressive JPEG)
+     decoded in cv2's and PIL's views and converted by convert_to_eps,
+     each against the SHA-256s and refusals recorded from cv2, PIL and
+     the JAX package, ms a 640x360 progressive JPEG and LZW TIFF;
  16. a `{"host_warp": ...}` line, a `{"kernels": [...]}` line (launches by
      main path), then the last line `{"ok": true, "device": {...}}`.
 
@@ -4666,20 +4674,176 @@ def phase_jpeg_decode():
             "ms_per_frame": per_frame}
 
 
+# phase 15 (a): the port's JPEG encoder writes the committed video again.
+# Phase 3's video (VIDEO, seed 0) begins with the 16 frames of
+# tests/data/jpeg_video (the generator's frames do not depend on how many
+# follow), which cv2.imwrite wrote at quality 90, 4:2:0
+ENCODE_FRAMES = 16
+ENCODE_QUALITY, ENCODE_SAMPLING = 90, "420"
+# phase 15 (c): the format fixtures and the frames timed among them
+FORMATS_DIR = "tests/data/formats"
+FORMAT_TIMED = ("frame_640x360_prog.jpg", "frame_640x360_lzw.tif")
+
+
+def _sha(a):
+    """SHA-256 of bytes or of an array's elements (bool as 0/1), as
+    tests/test_torch_formats.py records them."""
+    import hashlib
+    if not isinstance(a, bytes):
+        a = ((a != 0).astype("uint8") if a.dtype == bool else a).tobytes()
+    return hashlib.sha256(a).hexdigest()
+
+
+def phase_jpeg_encode(frames, dest):
+    """The first ENCODE_FRAMES frames of phase 3's video written by the
+    port's encoder (data/image_io.encode_jpeg, csrc/jpeg_encode.cpp built
+    with g++ here at first use) at ENCODE_QUALITY and ENCODE_SAMPLING,
+    with cv2, PIL and matplotlib refused: each file must equal the
+    committed tests/data/jpeg_video frame byte for byte.  The files and
+    the committed annotation are laid out under `dest` as the committed
+    video is.  Returns the first encode's wall (the build included) and
+    the median ms a 640x360 frame over DECODE_REPEATS encodes of all."""
+    from vatl4pose_tpu_torch.data import image_io
+    src = HERE / JPEG_VIDEO
+    ann = json.loads((src / JPEG_VIDEO_ANN).read_text())
+    names = [im["file_name"] for im in ann["images"]]
+    if len(names) != ENCODE_FRAMES or len(frames) < ENCODE_FRAMES:
+        raise AssertionError(f"JPEG encode: {len(names)} committed frames, "
+                             f"{len(frames)} generated")
+    wrong = []
+    with refusing():
+        t0 = time.perf_counter()
+        datas = [image_io.encode_jpeg(rgb, ENCODE_QUALITY, ENCODE_SAMPLING)
+                 for rgb in frames[:ENCODE_FRAMES]]
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(DECODE_REPEATS):
+            t0 = time.perf_counter()
+            for rgb in frames[:ENCODE_FRAMES]:
+                image_io.encode_jpeg(rgb, ENCODE_QUALITY, ENCODE_SAMPLING)
+            times.append(time.perf_counter() - t0)
+    for name, data in zip(names, datas):
+        if data != (src / name).read_bytes():
+            wrong.append(name)
+        out = Path(dest) / name
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_bytes(data)
+    (Path(dest) / JPEG_VIDEO_ANN).parent.mkdir(parents=True, exist_ok=True)
+    (Path(dest) / JPEG_VIDEO_ANN).write_bytes((src / JPEG_VIDEO_ANN)
+                                              .read_bytes())
+    if wrong:
+        raise AssertionError(f"JPEG encode: {len(wrong)} of "
+                             f"{ENCODE_FRAMES} files differ from the "
+                             f"committed ones: {wrong}")
+    ms = statistics.median(times) / ENCODE_FRAMES * 1e3
+    log(f"JPEG encode: {ENCODE_FRAMES} frames of 640x360 at quality "
+        f"{ENCODE_QUALITY}, {ENCODE_SAMPLING}, equal to the committed "
+        f"files byte for byte; the first encode, the g++ build included, "
+        f"{first_s:.2f} s; {ms:.3f} ms a frame (one thread)")
+    return {"frames": ENCODE_FRAMES, "first_encode_s": first_s,
+            "ms_per_frame": ms}
+
+
+def phase_formats(card):
+    """Every fixture of tests/data/formats decoded by the port in cv2's
+    view (read_images, image_size) and PIL's view (read_image_mode) and
+    converted by convert_to_eps.main alone in a directory, with cv2, PIL
+    and matplotlib refused; each result held against the SHA-256 that
+    expected.json records from cv2, PIL and the JAX package's main, and
+    each recorded refusal raised.  The FORMAT_TIMED frames' decode is
+    timed: median ms of DECODE_REPEATS decodes."""
+    import shutil
+    from vatl4pose_tpu_torch.cli import convert_to_eps
+    from vatl4pose_tpu_torch.data import image_io
+    root = HERE / FORMATS_DIR
+    expected = json.loads((root / "expected.json").read_text())
+    failed, checked = [], {"cv2": 0, "pil": 0, "eps": 0, "refusals": 0}
+
+    def expect(name, kind, fn, want, refusal):
+        try:
+            got = fn()
+        except ValueError as e:
+            # the readers name the file; the EPS writer's refusal is PIL's
+            # message as it is
+            if refusal and refusal in str(e) and (
+                    kind == "eps" or name in str(e)):
+                checked["refusals"] += 1
+            else:
+                failed.append(f"{name} {kind}: {e}")
+            return
+        if refusal:
+            failed.append(f"{name} {kind}: read, not refused ({refusal})")
+        elif got != want:
+            failed.append(f"{name} {kind}: {got} != {want}")
+        else:
+            checked[kind] += 1
+
+    ms = {}
+    with refusing(), tempfile.TemporaryDirectory() as tmp:
+        for name, want in expected.items():
+            path = str(root / name)
+            cv_refusal = want.get("refused") or want.get("refused_cv2")
+            expect(name, "cv2", lambda: (
+                _sha(image_io.read_images([path])[0]),
+                list(image_io.image_size(path))),
+                None if cv_refusal else (want["cv2"]["sha256"],
+                                         want["size"]), cv_refusal)
+
+            def pil():
+                mode, px, palette = image_io.read_image_mode(path)
+                return mode, _sha(px)
+            expect(name, "pil", pil, None if "refused" in want else (
+                want["pil"]["mode"], want["pil"]["sha256"]),
+                want.get("refused"))
+            d = Path(tmp) / name
+            d.mkdir()
+            shutil.copy(path, d)
+            eps_error = want["eps"].get("error", "")
+            eps_refusal = want.get("refused") or (
+                eps_error[len("ValueError: "):]
+                if eps_error.startswith("ValueError: ") else None)
+
+            def eps():
+                import io
+                with contextlib.redirect_stdout(io.StringIO()):
+                    (out,) = convert_to_eps.main(["--dir", str(d)])
+                return _sha(Path(out).read_bytes())
+            expect(name, "eps", eps, want["eps"].get("sha256"), eps_refusal)
+        for name in FORMAT_TIMED:
+            path = str(root / name)
+            times = []
+            for _ in range(DECODE_REPEATS):
+                t0 = time.perf_counter()
+                image_io.read_images([path], num_threads=1)
+                times.append(time.perf_counter() - t0)
+            ms[name] = statistics.median(times) * 1e3
+    # three checks a fixture (cv2's view, PIL's view, the EPS), each a
+    # match or a recorded refusal
+    if failed or sum(checked.values()) != 3 * len(expected):
+        raise AssertionError("format fixtures: " + "; ".join(failed[:20]))
+    log(f"format fixtures: {len(expected)} files of {FORMATS_DIR} ({checked})"
+        f" match cv2's, PIL's and the JAX convert_to_eps's recorded hashes "
+        f"and refusals, cv2, PIL and matplotlib refused; ms a 640x360 frame "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; {card}")
+    return {"files": len(expected), "checked": checked,
+            "ms_per_frame": ms}
+
+
 # the second main() of phase 15 draws every figure of the loop: its rounds
 # cut to QUERY_RATIO's first two entries (9 rounds -> 2)
 ENTRY_VIS_QUERY_RATIO = [0.05, 0.1]
 ENTRY_VIS_FLAGS = ["--vis", "--vis_thc", "--vis_wpu"]
 
 
-def phase_entry_main(card, seed, vis=False):
+def phase_entry_main(card, seed, vis=False, video_root=None):
     """run_active_learning.main(argv) in this process on the JPEG video
-    laid out as PoseTrack21's video 000001, from phase 3's seeded weights
-    written to disk, --cfg a copy of ENTRY_CONFIG with entry_cuts only;
-    checked as phase 5's loop, each round's query within the pool and
-    disjoint from the earlier rounds'.  With `vis`, the loop runs with
-    ENTRY_VIS_FLAGS, QUERY_RATIO cut to ENTRY_VIS_QUERY_RATIO, matplotlib,
-    cv2 and PIL refused: the figures of each kind are counted (a THC grid
+    (`video_root`, laid out as tests/data/jpeg_video, or that directory
+    itself) laid out as PoseTrack21's video 000001, from phase 3's seeded
+    weights written to disk, --cfg a copy of ENTRY_CONFIG with entry_cuts
+    only, matplotlib, cv2 and PIL refused; checked as phase 5's loop, each
+    round's query within the pool and disjoint from the earlier rounds'.
+    With `vis`, the loop runs with ENTRY_VIS_FLAGS, QUERY_RATIO cut to
+    ENTRY_VIS_QUERY_RATIO: the figures of each kind are counted (a THC grid
     a sample with both neighbours a pass, a WPU scatter a sample a pass, a
     cluster figure a round that queried), timed, and a few read back."""
     import os
@@ -4691,14 +4855,16 @@ def phase_entry_main(card, seed, vis=False):
     from vatl4pose_tpu_torch.data import build_dataset
     from vatl4pose_tpu_torch.kernels import KERNELS, reset_launch_counts
 
+    video_root = Path(video_root or HERE / JPEG_VIDEO)
     label = "AL main() on JPEG frames" + (
-        " " + " ".join(ENTRY_VIS_FLAGS) if vis else "")
+        " " + " ".join(ENTRY_VIS_FLAGS) if vis else "") + (
+        "" if video_root == HERE / JPEG_VIDEO else " written by the port")
     failed = []
     figures = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
         _posetrack_layout(types.SimpleNamespace(
-            root=str(HERE / JPEG_VIDEO), ann=JPEG_VIDEO_ANN), root)
+            root=str(video_root), ann=JPEG_VIDEO_ANN), root)
         model, ae = make_models(seed)
         weights = Cfg({"MODEL": {"TYPE": "SimplePose"}, "AE": {}})
         write_weights(tmp, weights, model, ae)
@@ -4715,7 +4881,7 @@ def phase_entry_main(card, seed, vis=False):
             raise AssertionError(f"{label}: the config copy differs from "
                                  f"{ENTRY_CONFIG} beyond its cuts")
         n = len(build_dataset({"TYPE": "Posetrack21",
-                               "ROOT": str(HERE / JPEG_VIDEO),
+                               "ROOT": str(video_root),
                                "ANN": JPEG_VIDEO_ANN}))
         # a QUERY_RATIO short of 1.0 ends in one more round that queries
         # the rest
@@ -4732,8 +4898,8 @@ def phase_entry_main(card, seed, vis=False):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with CallLog() as calls, contextlib.ExitStack() as stack:
+                stack.enter_context(refusing())
                 if vis:
-                    stack.enter_context(refusing())
                     stack.enter_context(timing)
                 reset_launch_counts()
                 cli.main(argv)
@@ -5088,12 +5254,18 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase("phase 14: the library tail")
     lib = phase_library_tail(video, seed, card)
+    first_frames = video.frames[:ENCODE_FRAMES].copy()
     del video
     torch.cuda.empty_cache()
     phase("phase 15: the entry points as a user starts them")
+    written = tempfile.TemporaryDirectory()
     entry = {"configs": phase_configs(), "jpeg": phase_jpeg_decode(),
-             "main": phase_entry_main(card, seed)}
+             "jpeg_encode": phase_jpeg_encode(first_frames, written.name)}
+    del first_frames
+    entry["main"] = phase_entry_main(card, seed, video_root=written.name)
+    written.cleanup()
     entry["main_vis"] = phase_entry_main(card, seed, vis=True)
+    entry["formats"] = phase_formats(card)
     log("AL main() on JPEG frames, wall and split, s: " + json.dumps(
         dict(entry["main"]["phase_s"], wall=entry["main"]["loop_s"]))
         + "; phase 5's " + json.dumps(dict(al["phase_s"], wall=al["loop_s"]))

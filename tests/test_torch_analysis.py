@@ -201,9 +201,35 @@ def test_convert_to_eps_matches_jax(tmp_path):
 
 
 def test_convert_to_eps_refuses_bmp_and_tiff(tmp_path):
-    """BMP and TIFF figures raise ValueError naming the file and the
-    ROADMAP item (the port reads PNG and JPEG only)."""
+    """BMP and TIFF figures convert as the JAX package's main converts them
+    (the port reads both since it has its own readers), CMYK TIFF
+    included; a mode PIL's EPS writer refuses ("1") raises the same
+    ValueError in both, before either writes a file."""
     from PIL import Image
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "x.bmp")
-    with pytest.raises(ValueError, match=r"x\.bmp.*A15"):
-        convert_to_eps.main(["--dir", str(tmp_path)])
+    rng = np.random.default_rng(1)
+    rgb = rng.integers(0, 255, (9, 14, 3), np.uint8)
+    for tag in ("port", "jax"):
+        d = tmp_path / tag
+        d.mkdir()
+        Image.fromarray(rgb).save(d / "x.bmp")
+        Image.fromarray(rgb).convert("P").save(d / "y.bmp")
+        Image.fromarray(rgb).save(d / "z.tif", compression="tiff_lzw")
+        Image.fromarray(np.concatenate([rgb, rgb[..., :1]], 2),
+                        "CMYK").save(d / "k.tiff")
+    got = convert_to_eps.main(["--dir", str(tmp_path / "port")])
+    want = jax_eps.main(["--dir", str(tmp_path / "jax")])
+    names = [os.path.basename(p) for p in got]
+    assert names == [os.path.basename(p) for p in want] == [
+        "k.eps", "x.eps", "y.eps", "z.eps"]
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() \
+            == (tmp_path / "jax" / name).read_bytes(), name
+    assert b'8 4 0 1 1 "false 4 colorimage"' \
+        in (tmp_path / "port" / "k.eps").read_bytes()
+    for tag, main in (("port1", convert_to_eps.main), ("jax1", jax_eps.main)):
+        d = tmp_path / tag
+        d.mkdir()
+        Image.fromarray(rgb[..., 0] > 100).save(d / "b.bmp")   # mode "1"
+        with pytest.raises(ValueError, match="image mode is not supported"):
+            main(["--dir", str(d)])
+        assert os.listdir(d) == ["b.bmp"]

@@ -196,13 +196,22 @@ def test_jpeg_exif_orientation_matches_cv2(tmp_path, orientation,
 
 
 def test_jpeg_refusals(tmp_path):
-    """Progressive, arithmetic, lossless, 12-bit and CMYK JPEGs and files
-    that are neither JPEG nor PNG raise ValueError naming the file (and,
-    for a JPEG, the marker)."""
+    """A progressive JPEG decodes as cv2 decodes it, one whose scan header
+    breaks the progressive rules raises; arithmetic, lossless, 12-bit and
+    CMYK JPEGs and files of a kind the port does not read raise ValueError
+    naming the file (and, for a JPEG, the marker or field)."""
     path = tmp_path / "p.jpg"
     write_jpeg(path, sample_image(33, 17), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match=r"p\.jpg: progressive.*SOF2"):
-        dataset.decode_frame(str(path))
+    assert_decodes_as_jax(path)
+    prog = path.read_bytes()
+    sos = prog.index(b"\xff\xda")
+    ns = prog[sos + 4]
+    bad_scan = bytearray(prog)
+    bad_scan[sos + 5 + 2 * ns + 1] = 5          # a DC scan with Se 5
+    (tmp_path / "ps.jpg").write_bytes(bytes(bad_scan))
+    with pytest.raises(ValueError,
+                       match=r"ps\.jpg: bad progressive scan.*Se 5"):
+        dataset.decode_frame(str(tmp_path / "ps.jpg"))
     base = tmp_path / "b.jpg"
     write_jpeg(base, sample_image(33, 17), [cv2.IMWRITE_JPEG_QUALITY, 90])
     data = base.read_bytes()
@@ -224,7 +233,7 @@ def test_jpeg_refusals(tmp_path):
         dataset.decode_frame(str(cmyk))
     other = tmp_path / "x.jpg"
     other.write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="not a JPEG or PNG"):
+    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP or TIFF"):
         dataset.decode_frame(str(other))
     cut = tmp_path / "cut.jpg"
     cut.write_bytes(data[:len(data) // 2])
@@ -474,8 +483,10 @@ def test_png_matches_cv2(tmp_path, channels, filt):
 
 
 def test_png_gray_alpha_and_refusals(tmp_path):
-    """Gray + alpha (PIL writes it) equals cv2's decode; a 16-bit, a
-    palette and an interlaced PNG raise ValueError."""
+    """Gray + alpha (PIL writes it), 16-bit and palette PNGs equal cv2's
+    decode; a PNG flagged interlaced whose data is not Adam7, a colour
+    type PNG does not have and an unknown row filter raise ValueError
+    naming the file and the field."""
     from PIL import Image
     img = sample_image(31, 19)
     la = tmp_path / "la.png"
@@ -483,20 +494,36 @@ def test_png_gray_alpha_and_refusals(tmp_path):
     assert_decodes_as_jax(la)
     deep = tmp_path / "d.png"
     cv2.imwrite(str(deep), img.astype(np.uint16) * 257)
-    with pytest.raises(ValueError, match="16-bit"):
-        dataset.decode_frame(str(deep))
+    assert_decodes_as_jax(deep)
     pal = tmp_path / "p.png"
     Image.fromarray(img).convert("P").save(pal)
-    with pytest.raises(ValueError, match="palette"):
-        dataset.decode_frame(str(pal))
+    assert_decodes_as_jax(pal)
+
+    def with_ihdr_byte(src, at, value):
+        data = bytearray(src.read_bytes())
+        data[at] = value
+        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+        return bytes(data)
     inter = tmp_path / "i.png"
-    data = bytearray((tmp_path / "la.png").read_bytes())
-    data[28] = 1                                  # IHDR's interlace method
-    crc = zlib.crc32(bytes(data[12:29]))
-    data[29:33] = struct.pack(">I", crc)
-    inter.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="interlaced"):
+    inter.write_bytes(with_ihdr_byte(la, 28, 1))   # IHDR's interlace method
+    with pytest.raises(ValueError, match=r"i\.png: PNG (data of|filter)"):
         dataset.decode_frame(str(inter))
+    five = tmp_path / "c5.png"
+    five.write_bytes(with_ihdr_byte(la, 25, 5))    # IHDR's colour type
+    with pytest.raises(ValueError, match=r"c5\.png: PNG colour type 5"):
+        dataset.decode_frame(str(five))
+    data = la.read_bytes()
+    start = data.index(b"IDAT") + 4
+    n = struct.unpack(">I", data[start - 8:start - 4])[0]
+    raw = bytearray(zlib.decompress(data[start:start + n]))
+    raw[0] = 7                                     # row 0's filter type
+    body = zlib.compress(bytes(raw))
+    idat = (struct.pack(">I", len(body)) + b"IDAT" + body
+            + struct.pack(">I", zlib.crc32(b"IDAT" + body)))
+    (tmp_path / "f7.png").write_bytes(data[:start - 8] + idat
+                                      + data[start + n + 4:])
+    with pytest.raises(ValueError, match=r"f7\.png: PNG filter type 7"):
+        dataset.decode_frame(str(tmp_path / "f7.png"))
 
 
 @pytest.mark.parametrize("short_palette", [False, True],

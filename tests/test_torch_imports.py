@@ -419,3 +419,76 @@ assert not leaked, leaked
                          cwd=REPO, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_formats_run_without_refused_packages(tmp_path):
+    """The generator's jpg and bmp formats, every reader (cv2's and PIL's
+    views) and convert_to_eps run on the format fixtures behind the same
+    finder (no cv2 or PIL), each result equal to the SHA-256 that
+    tests/data/formats/expected.json records from cv2, PIL and the JAX
+    package's main."""
+    script = _SCRIPT % (REFUSED,) + r"""
+import hashlib, json, os, shutil, sys
+import numpy as np
+from vatl4pose_tpu_torch.cli import convert_to_eps
+from vatl4pose_tpu_torch.data import make_synthetic_video
+from vatl4pose_tpu_torch.data.image_io import (encode_jpeg, image_size,
+                                               read_image_mode, read_images)
+
+
+def sha(a):
+    if not isinstance(a, bytes):
+        a = np.ascontiguousarray(a != 0 if a.dtype == bool else a).astype(
+            np.uint8 if a.dtype == bool else a.dtype).tobytes()
+    return hashlib.sha256(a).hexdigest()
+
+
+tmp = sys.argv[1]
+fixtures = os.path.join("tests", "data", "formats")
+expected = json.load(open(os.path.join(fixtures, "expected.json")))
+for name, want in expected.items():
+    path = os.path.join(fixtures, name)
+    refusal = want.get("refused") or want.get("refused_cv2")
+    try:
+        got = read_images([path])[0]
+        assert not refusal, name
+        assert sha(got) == want["cv2"]["sha256"], name
+        assert list(image_size(path)) == want["size"], name
+    except ValueError as e:
+        assert refusal and name in str(e) and refusal in str(e), (name, e)
+    try:
+        mode, px, palette = read_image_mode(path)
+        assert "refused" not in want, name
+        assert (mode, sha(px)) == (want["pil"]["mode"],
+                                   want["pil"]["sha256"]), name
+    except ValueError as e:
+        assert want["refused"] in str(e), (name, e)
+    d = os.path.join(tmp, name + ".d")
+    os.makedirs(d)
+    shutil.copy(path, d)
+    try:
+        (out,) = convert_to_eps.main(["--dir", d])
+        assert sha(open(out, "rb").read()) == want["eps"]["sha256"], name
+    except ValueError as e:
+        assert str(e) in (want.get("refused", ""),
+                          want["eps"].get("error", "")[len("ValueError: "):]) \
+            or want.get("refused", "@") in str(e), (name, e)
+kw = dict(num_frames=1, num_persons=2, width=37, height=29, seed=6)
+make_synthetic_video(os.path.join(tmp, "npy"), **kw)
+rgb = np.load(os.path.join(tmp, "npy", "images", "000001", "000000.npy"))
+for fmt in ("jpg", "bmp"):
+    make_synthetic_video(os.path.join(tmp, fmt), img_format=fmt, **kw)
+    path = os.path.join(tmp, fmt, "images", "000001", "000000." + fmt)
+    if fmt == "jpg":
+        assert open(path, "rb").read() == encode_jpeg(rgb)
+    else:
+        assert (read_images([path])[0] == rgb).all()
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+print(len(expected))
+"""
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 60

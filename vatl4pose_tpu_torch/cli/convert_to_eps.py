@@ -8,11 +8,12 @@ The reference opens every file in the directory blindly (and says "pdf
 images", which PIL cannot read); this version converts the raster formats
 it can load, skips the rest, and takes the directory as an argument
 instead of hard-coding docs/paper.  Files are read by
-data/image_io.read_image_mode (PNG and JPEG, the file's own mode) and
-written by `write_eps`, byte for byte what PIL's EpsImagePlugin writes:
-RGBA, P and LA are converted to RGB first, as the JAX package's main
-does, L is written as `image`.  BMP and TIFF inputs raise ValueError
-(ROADMAP A15: the port has no reader for them yet).
+data/image_io.read_image_mode (PNG, JPEG, BMP and TIFF, the file's own
+mode as PIL's Image.open gives it) and written by `write_eps`, byte for
+byte what PIL's EpsImagePlugin writes: RGBA, P and LA are converted to RGB
+first, as the JAX package's main does, L is written as `image`, CMYK as
+`false 4 colorimage`; any other mode ("1", "I;16") raises
+ValueError("image mode is not supported"), as PIL's writer does.
 """
 
 from __future__ import annotations
@@ -27,17 +28,18 @@ from ..data.image_io import palette_to_rgb, read_image_mode
 __all__ = ["RASTER_EXT", "write_eps", "main"]
 
 RASTER_EXT = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
-UNREAD_EXT = (".bmp", ".tif", ".tiff")
 _LINE = 78                      # hex digits a line, as PIL's EpsEncode
 
 
 def write_eps(path: str, mode: str, px: np.ndarray) -> None:
-    """An L (H, W) or RGB (H, W, 3) uint8 image as PIL's EPS writer
-    (EpsImagePlugin._save with eps=1) writes it."""
+    """An L (H, W), RGB (H, W, 3) or CMYK (H, W, 4) uint8 image as PIL's
+    EPS writer (EpsImagePlugin._save with eps=1) writes it."""
     if mode == "L":
         ch, op = 1, b"image"
     elif mode == "RGB":
         ch, op = 3, b"false 3 colorimage"
+    elif mode == "CMYK":
+        ch, op = 4, b"false 4 colorimage"
     else:
         raise ValueError("image mode is not supported")
     h, w = px.shape[:2]
@@ -76,11 +78,7 @@ def main(argv=None):
         base, ext = os.path.splitext(fig)
         if ext.lower() not in RASTER_EXT:
             continue
-        path = os.path.join(args.dir, fig)
-        if ext.lower() in UNREAD_EXT:
-            raise ValueError(f"{path}: BMP and TIFF figures are not read by "
-                             f"the port yet (ROADMAP A15)")
-        mode, px, palette = read_image_mode(path)
+        mode, px, palette = read_image_mode(os.path.join(args.dir, fig))
         if mode == "P":
             mode, px = "RGB", palette_to_rgb(px, palette)
         elif mode == "LA":

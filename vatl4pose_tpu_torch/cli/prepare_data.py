@@ -6,8 +6,9 @@ integrate_new_annotation.py, data/jrdb-pose/make_new_annotation.py).
         --root data/PoseTrack21
 
 Host-only JSON work: no device is involved.  The image sizes come from
-the JPEG and PNG headers (data/image_io.py: no cv2, which the machine with
-the card does not have); the integrate subcommand reads no image.
+the JPEG, PNG and BMP headers and a TIFF's first IFD (data/image_io.py: no
+cv2, which the machine with the card does not have); the integrate
+subcommand reads no image.
 
 Subcommands:
   posetrack-val      extract ~30 densely-labeled center frames per val video

@@ -1,5 +1,5 @@
-// Baseline and extended sequential Huffman JPEG decoder, host C++, bound
-// with ctypes by vatl4pose_tpu_torch/data/image_io.py.
+// Baseline, extended sequential and progressive Huffman JPEG decoder,
+// host C++, bound with ctypes by vatl4pose_tpu_torch/data/image_io.py.
 //
 // The output is bit-identical to libjpeg-turbo's defaults as
 // cv2.imread(path, IMREAD_COLOR) uses them, converted to RGB:
@@ -14,14 +14,25 @@
 //   * a grayscale image replicated into three channels.
 // EXIF orientation is read here (jpeg_info) and applied by the caller.
 //
-// 8-bit SOF0/SOF1 frames of 1 or 3 components, any integer sampling
+// 8-bit SOF0/SOF1/SOF2 frames of 1 or 3 components, any integer sampling
 // ratio, one interleaved scan or several (non-interleaved, Huffman tables
 // redefined between them), restart intervals; APPn and COM segments are
-// skipped.  Progressive, arithmetic, lossless and hierarchical frames,
-// 12-bit samples, CMYK/YCCK, RGB (Adobe transform 0 or 'R','G','B'
-// component ids) and DNL are refused with an error naming the marker.
-// Corrupt or truncated entropy-coded data is refused too (libjpeg would
-// warn and fill with zeros).
+// skipped.  A progressive (SOF2) file's scans are read as jdphuff.c reads
+// them: DC first and refinement scans (interleaved or not), AC first and
+// refinement scans of one component with spectral selection, successive
+// approximation and end-of-band runs; once every scan is read the
+// coefficients are the file's, and the IDCT, upsampling and colour paths
+// are the sequential ones (libjpeg's block smoothing changes nothing on a
+// complete file, whose last scans leave no coefficient bits unknown).
+// Each component's delivered bits are tracked as jdphuff.c's coef_bits:
+// a scan whose Ah does not follow the previous scan of its coefficients,
+// an AC scan before the DC one, and a file whose scans leave any
+// coefficient unknown or partly read are refused.
+// Arithmetic, lossless and hierarchical frames, 12-bit samples,
+// CMYK/YCCK, RGB (Adobe transform 0 or 'R','G','B' component ids) and DNL
+// are refused with an error naming the marker.  Corrupt or truncated
+// entropy-coded data is refused too (libjpeg would warn and fill with
+// zeros).
 //
 // Build: g++ -O3 -fPIC -shared -std=c++17 -pthread jpeg_decode.cpp
 
@@ -106,6 +117,10 @@ struct Component {
   int width = 0, height = 0; // downsampled_width / _height
   bool latched = false;      // quant table copied at its first scan
   int16_t quant[64];         // natural order, ISLOW_MULT_TYPE (short)
+  // progressive: the lowest bit of each coefficient (zigzag order) that
+  // the scans so far delivered, -1 before its first scan (jdphuff.c's
+  // coef_bits)
+  int8_t coef_bits[64];
   std::vector<int16_t> coef; // bh * bw blocks of 64, natural order
 };
 
@@ -406,10 +421,21 @@ class Decoder {
       if (pos_ >= n_) break;   // no EOI: what was decoded stands
       m = next_marker();
     }
-    for (int c = 0; c < f_.ncomp; c++)
-      if (!f_.comp[c].latched)
-        fail("component " + std::to_string(f_.comp[c].id) +
-             " is in no scan");
+    for (int c = 0; c < f_.ncomp; c++) {
+      const Component &k = f_.comp[c];
+      if (!k.latched)
+        fail("component " + std::to_string(k.id) + " is in no scan");
+      // an incomplete scan script: libjpeg-turbo would smooth the blocks
+      // whose low coefficients are unknown, so its pixels are not these
+      for (int z = 0; progressive_ && z < 64; z++)
+        if (k.coef_bits[z] != 0)
+          fail("incomplete progressive JPEG: component " +
+               std::to_string(k.id) + " coefficient " + std::to_string(z) +
+               (k.coef_bits[z] < 0
+                    ? std::string(" is in no scan")
+                    : " lacks its low " + std::to_string(k.coef_bits[z]) +
+                          " bits"));
+    }
     output(rgb);
   }
 
@@ -418,6 +444,7 @@ class Decoder {
   size_t n_, pos_ = 0, sos_pos_ = 0;
   Frame f_;
   bool frame_seen_ = false, jfif_ = false, adobe_ = false;
+  bool progressive_ = false;
   bool app1_seen_ = false;
   int adobe_transform_ = -1, orientation_ = 1;
   int restart_interval_ = 0, scans_ = 0;
@@ -454,10 +481,10 @@ class Decoder {
     switch (m) {
       case 0xC0:
       case 0xC1:
+      case 0xC2:
+        progressive_ = m == 0xC2;
         sof(segment(m));
         return;
-      case 0xC2:
-        fail("progressive JPEG (SOF2, marker 0xFFC2) is not supported");
       case 0xC3:
         fail("lossless JPEG (SOF3, marker 0xFFC3) is not supported");
       case 0xC5:
@@ -639,6 +666,22 @@ class Decoder {
     int ns = p[0];
     if (ns < 1 || ns > 4 || s.length != size_t(4 + 2 * ns))
       fail("bad SOS segment");
+    const int ss = p[1 + 2 * ns], se = p[2 + 2 * ns];
+    const int ah = p[3 + 2 * ns] >> 4, al = p[3 + 2 * ns] & 15;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail("a scan with spectral selection or successive approximation "
+             "in a sequential JPEG");
+    } else if ((ss == 0) != (se == 0) || se < ss || se > 63 || al > 13 ||
+               (ss > 0 && ns != 1) || (ah != 0 && al != ah - 1)) {
+      fail("bad progressive scan parameters (Ss " + std::to_string(ss) +
+           ", Se " + std::to_string(se) + ", Ah " + std::to_string(ah) +
+           ", Al " + std::to_string(al) + ")");
+    }
+    // which tables the scan codes with: DC first scans the DC table,
+    // AC scans the AC table, DC refinement none (jdphuff.c)
+    const bool dc_first = ss == 0 && (!progressive_ || ah == 0);
+    const bool need_ac = !progressive_ || ss > 0;
     Component *sc[4];
     for (int i = 0; i < ns; i++) {
       int id = p[1 + 2 * i], t = p[2 + 2 * i];
@@ -648,21 +691,33 @@ class Decoder {
       if (!k) fail("SOS names a component the frame does not have");
       k->dc_tbl = t >> 4;
       k->ac_tbl = t & 15;
-      if (k->dc_tbl > 3 || k->ac_tbl > 3 || !dc_[k->dc_tbl].defined ||
-          !ac_[k->ac_tbl].defined)
+      if (k->dc_tbl > 3 || k->ac_tbl > 3 ||
+          (dc_first && !dc_[k->dc_tbl].defined) ||
+          (need_ac && !ac_[k->ac_tbl].defined))
         fail("SOS uses a Huffman table that is not defined");
       if (!k->latched) {   // jdinput.c latch_quant_tables
         if (!qt_defined_[k->tq]) fail("a quantisation table is missing");
         std::memcpy(k->quant, qt_[k->tq], sizeof k->quant);
         k->coef.assign(size_t(k->bw) * k->bh * 64, 0);
+        std::memset(k->coef_bits, -1, sizeof k->coef_bits);
         k->latched = true;
+      }
+      if (progressive_) {   // jdphuff.c start_pass_phuff_decoder
+        if (ss > 0 && k->coef_bits[0] < 0)
+          fail("bad progression: an AC scan of component " +
+               std::to_string(id) + " before its first DC scan");
+        for (int z = ss; z <= se; z++) {
+          int expected = k->coef_bits[z] < 0 ? 0 : k->coef_bits[z];
+          if (ah != expected)
+            fail("bad progression: component " + std::to_string(id) +
+                 " coefficient " + std::to_string(z) + " scanned with Ah " +
+                 std::to_string(ah) + " where " + std::to_string(expected) +
+                 " is due");
+          k->coef_bits[z] = int8_t(al);
+        }
       }
       sc[i] = k;
     }
-    int ss = p[1 + 2 * ns], se = p[2 + 2 * ns], ahal = p[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0)
-      fail("a scan with spectral selection or successive approximation "
-           "(progressive) is not supported");
     if (ns > 1) {
       int blocks = 0;
       for (int i = 0; i < ns; i++) blocks += sc[i]->h * sc[i]->v;
@@ -671,6 +726,7 @@ class Decoder {
 
     BitReader br(d_, n_, pos_);
     int pred[4] = {0, 0, 0, 0};
+    long eobrun = 0;
     int restarts_to_go = restart_interval_, next_rst = 0;
     auto restart = [&]() {
       br.reset();
@@ -683,9 +739,10 @@ class Decoder {
       next_rst = (next_rst + 1) & 7;
       restarts_to_go = restart_interval_;
       for (int &v : pred) v = 0;
+      eobrun = 0;
     };
-    auto block = [&](Component *k, int i, int by, int bx) {
-      int16_t *b = k->coef.data() + (size_t(by) * k->bw + bx) * 64;
+    // jdhuff.c decode_mcu (sequential)
+    auto sequential = [&](Component *k, int i, int16_t *b) {
       int s = br.decode(dc_[k->dc_tbl]);
       int diff = s ? extend(br.bits(s), s) : 0;
       pred[i] += diff;
@@ -703,6 +760,85 @@ class Decoder {
           z += 15;
         }
       }
+    };
+    // jdphuff.c decode_mcu_DC_first / _DC_refine / _AC_first / _AC_refine
+    auto dc_scan = [&](Component *k, int i, int16_t *b) {
+      if (ah == 0) {
+        int s = br.decode(dc_[k->dc_tbl]);
+        int diff = s ? extend(br.bits(s), s) : 0;
+        pred[i] += diff;
+        b[0] = int16_t(int32_t(uint32_t(pred[i]) << al));
+      } else if (br.bits(1)) {
+        b[0] = int16_t(b[0] | (1 << al));
+      }
+    };
+    auto ac_first = [&](Component *k, int16_t *b) {
+      if (eobrun > 0) {
+        eobrun--;
+        return;
+      }
+      const Huffman &ac = ac_[k->ac_tbl];
+      for (int z = ss; z <= se; z++) {
+        int rs = br.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          z += r;
+          b[kNatural[z]] =
+              int16_t(int32_t(uint32_t(extend(br.bits(s), s)) << al));
+        } else if (r == 15) {
+          z += 15;
+        } else {
+          eobrun = (1L << r) - 1;
+          if (r) eobrun += br.bits(r);
+          break;
+        }
+      }
+    };
+    auto ac_refine = [&](Component *k, int16_t *b) {
+      const int p1 = 1 << al, m1 = -(1 << al);
+      auto correct = [&](int16_t *c) {
+        if (br.bits(1) && (*c & p1) == 0)
+          *c = int16_t(*c >= 0 ? *c + p1 : *c + m1);
+      };
+      int z = ss;
+      if (eobrun == 0) {
+        const Huffman &ac = ac_[k->ac_tbl];
+        for (; z <= se; z++) {
+          int rs = br.decode(ac);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {   // libjpeg warns when s != 1 and reads one bit
+            s = br.bits(1) ? p1 : m1;
+          } else if (r != 15) {
+            eobrun = 1L << r;
+            if (r) eobrun += br.bits(r);
+            break;
+          }
+          do {
+            int16_t *c = b + kNatural[z];
+            if (*c != 0) {
+              correct(c);
+            } else if (--r < 0) {
+              break;
+            }
+            z++;
+          } while (z <= se);
+          if (s) b[kNatural[z]] = int16_t(s);
+        }
+      }
+      if (eobrun > 0) {
+        for (; z <= se; z++) {
+          int16_t *c = b + kNatural[z];
+          if (*c != 0) correct(c);
+        }
+        eobrun--;
+      }
+    };
+    auto block = [&](Component *k, int i, int by, int bx) {
+      int16_t *b = k->coef.data() + (size_t(by) * k->bw + bx) * 64;
+      if (!progressive_) sequential(k, i, b);
+      else if (ss == 0) dc_scan(k, i, b);
+      else if (ah == 0) ac_first(k, b);
+      else ac_refine(k, b);
     };
     auto mcu_start = [&](long index) {
       if (restart_interval_ && index > 0) {

@@ -33,8 +33,8 @@ JRDB_JOINT_PAIRS = [[1, 2], [0, 4], [3, 4], [8, 10], [5, 7], [10, 13],
 
 def decode_frames(paths: List[str]) -> List[np.ndarray]:
     """Decode frames → (H, W, 3) uint8 RGB each: `.npy` arrays as saved,
-    JPEG and PNG files as the JAX package's cv2.imread + BGR->RGB gives
-    them, by the port's own decoders (data/image_io.py; no cv2, which the
+    JPEG, PNG, BMP and TIFF files as the JAX package's cv2.imread +
+    BGR->RGB gives them, by the port's own decoders (data/image_io.py; no cv2, which the
     card's machine does not have), the JPEGs on several threads."""
     from .image_io import read_images
     out = [np.load(p) if p.endswith(".npy") else None for p in paths]

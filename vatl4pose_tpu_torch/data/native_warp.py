@@ -14,7 +14,8 @@ the flags and the compiler's `--version`, so that another compiler builds
 anew; the JAX package's library under native/ is never read or written.
 A failed build raises; `available()` only asks whether the library
 loads.  `build_host_library` builds the port's other host C++ (the JPEG
-decoder, data/image_io.py) the same way.
+decoder and encoder, data/image_io.py; the BMP and TIFF codecs,
+data/image_codecs.py) the same way.
 """
 
 from __future__ import annotations

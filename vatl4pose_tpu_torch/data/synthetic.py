@@ -4,8 +4,9 @@ The port's own copy of `make_synthetic_video` and
 `make_synthetic_multivideo` from vatl4pose_tpu/data/synthetic.py; for a
 given seed they write bit-identical files.  A video of F frames with P
 tracked "persons" (gaussian-blob bodies whose keypoints follow a smooth
-trajectory), written as .npy frames plus a PoseTrack-style annotation
-json; the multi-video set combines several such videos of different frame
+trajectory), written as .npy, PNG, JPEG or BMP frames (IMG_FORMATS; the
+JPEG and BMP files byte for byte cv2.imwrite's) plus a PoseTrack-style
+annotation json; the multi-video set combines several such videos of different frame
 sizes in one annotation, as a pre-training set does.
 """
 
@@ -17,9 +18,15 @@ from typing import Tuple
 
 import numpy as np
 
-from .image_io import write_png
+from .image_io import write_bmp, write_jpeg, write_png
 
-__all__ = ["make_synthetic_video", "make_synthetic_multivideo"]
+__all__ = ["make_synthetic_video", "make_synthetic_multivideo",
+           "IMG_FORMATS"]
+
+# the frame formats the port writes, each without cv2: .npy, an 8-bit RGB
+# PNG (the pixels cv2.imwrite stores, not its bytes), and cv2.imwrite's
+# own bytes for a JPEG (quality 95, 4:2:0) and a BMP (24-bit)
+IMG_FORMATS = ("npy", "png", "jpg", "jpeg", "bmp")
 
 # a rough 17-keypoint human template in a unit box (x, y) in [0,1]
 _TEMPLATE = np.array([
@@ -98,15 +105,20 @@ def make_synthetic_video(out_dir: str, num_frames: int = 8,
                          vis_prob: float = 0.9) -> Tuple[str, str]:
     """Write frames + annotation json. Returns (root_dir, ann_relpath).
 
-    img_format: "npy", "png" (8-bit RGB through image_io.write_png: the
-    pixels cv2.imwrite would store, not its bytes, and no cv2) or another
-    extension cv2.imwrite knows.  layout: "flat" (images/{video_id}/,
+    img_format: one of IMG_FORMATS: "npy", "png" (8-bit RGB through
+    image_io.write_png: the pixels cv2.imwrite would store, not its
+    bytes), "jpg"/"jpeg" and "bmp" (image_io.write_jpeg and write_bmp:
+    cv2.imwrite's bytes at its defaults); another extension raises
+    ValueError.  layout: "flat" (images/{video_id}/,
     annotations/) or "posetrack" (images/val/{video_id}_mpii_test/ and
     activelearning/val/{video_id}_mpii_test.json).  The appearance knobs
     (blob_sigma, blob_amp, channel_shift, bg_level) create domain gaps
     between videos; vis_prob is P(joint visible) and never shifts the rng
     stream.
     """
+    if img_format not in IMG_FORMATS:
+        raise ValueError(f"img_format {img_format!r}: the port writes "
+                         f"{', '.join(IMG_FORMATS)}")
     rng = np.random.default_rng(seed)
     if layout == "posetrack":
         img_rel = f"images/val/{video_id}_mpii_test"
@@ -168,10 +180,10 @@ def make_synthetic_video(out_dir: str, num_frames: int = 8,
             np.save(os.path.join(out_dir, fname), img_u8)
         elif img_format == "png":
             write_png(os.path.join(out_dir, fname), img_u8)
-        else:                           # another format needs cv2
-            import cv2
-            cv2.imwrite(os.path.join(out_dir, fname),
-                        cv2.cvtColor(img_u8, cv2.COLOR_RGB2BGR))
+        elif img_format == "bmp":
+            write_bmp(os.path.join(out_dir, fname), img_u8)
+        else:
+            write_jpeg(os.path.join(out_dir, fname), img_u8)
         images.append({"id": image_id, "image_id": image_id,
                        "file_name": fname, "width": width, "height": height,
                        "vid_id": video_id, "frame_id": f})
