@@ -1,0 +1,7 @@
+"""Kernel launches (device activities other than copies and sets) in the
+traced retraining call, per real row trained."""
+
+
+def read(ctx):
+    n = len(ctx.trace.kernels)
+    return n / ctx.traced_samples if n else None
