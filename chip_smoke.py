@@ -61,7 +61,7 @@ Phases, each of which fails the run on error, each with its wall time:
      frames, 768 samples) over a cut frame budget, so that the frames stay
      in host RAM and the crops come from the host warp: it must stream,
      query every sample once and launch K1 and K2 per chunk and K3 never;
-     the host warp's ms per chunk, the card's idle share of a streamed
+     the host warp's ms per chunk, the device time by kernel of a streamed
      pass, streamed scores against resident ones (the JAX package's
      bounds) and chunk 256 against chunk 512 (1e-5).  The loop starts from
      weights pre-trained on the video by jrdbpose_train's trainer, whose
@@ -1239,7 +1239,7 @@ def phase_main_path(video, seed):
         log(f"main path {mode}: warm scoring {rates[mode]:.1f} samples/s "
             f"({n} samples, median of 3: {statistics.median(times):.3f} s)")
         if profile_call(lambda: engine.score(*args, keep_heatmaps=False),
-                        f"scoring pass {mode}")[0]:
+                        f"scoring pass {mode}"):
             raise AssertionError(f"{mode}: the scoring pass ran an einsum "
                                  "(the crop K3 replaced)")
         results[mode] = res
@@ -1272,19 +1272,16 @@ def check_scoring_launches(counts, what):
 
 def profile_call(fn, label, top=12, show=("rot_warp", "heatmap_postprocess")):
     """fn() once more under torch.profiler: device time by kernel (the top
-    rows, and any row naming one of `show`), the share of its wall time
-    (profiler overhead included) in which the card ran nothing, and the
-    count of aten::einsum calls.  Returns (einsum calls, idle share), the
-    share None where the profiler saw no device time."""
+    rows, and any row naming one of `show`) and the count of aten::einsum
+    calls, which it returns.  The card's idle share is the benchmark's
+    (benchmark/trace.py: the union of the device's intervals)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     einsums = sum(e.count for e in events if e.key == "aten::einsum")
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
@@ -1293,17 +1290,16 @@ def profile_call(fn, label, top=12, show=("rot_warp", "heatmap_postprocess")):
     if not dev:
         log(f"profile {label}: the profiler recorded no device time "
             f"(breakdown not measured); aten::einsum calls {einsums}")
-        return einsums, None
-    busy = sum(t for _, t, _ in dev)
-    log(f"profile {label}: wall {wall_ms:.1f} ms under the profiler, "
-        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        return einsums
+    total = sum(t for _, t, _ in dev)
+    log(f"profile {label}: device time summed by kernel {total:.1f} ms, "
         f"aten::einsum calls {einsums}")
     rows = sorted(dev, key=lambda r: -r[1])
     for i, (key, t, count) in enumerate(rows):
         if i < top or any(k in key for k in show):
-            log(f"  {t:9.3f} ms {100 * t / busy:5.1f}% x{count:<4d} "
+            log(f"  {t:9.3f} ms {100 * t / total:5.1f}% x{count:<4d} "
                 f"{key[:110]}")
-    return einsums, 1 - busy / wall_ms
+    return einsums
 
 
 def make_retrainer(model, video, device=None, seed=166,
@@ -2050,7 +2046,7 @@ def phase_streaming_loop(card, seed):
     shares, repeat from call to call (ROADMAP C6); a retrain step's cost in
     that mode is printed.  The pre-trained weights are returned beside the
     results, for phase 11.
-    Then on the retrained weights also the card's idle share of one
+    Then on the retrained weights also the device time by kernel of one
     streamed pass (profiler), and the streamed path at chunk 256 against
     chunk 512 within 1e-5, with cuDNN held to deterministic algorithms."""
     import numpy as np
@@ -2168,7 +2164,7 @@ def phase_streaming_loop(card, seed):
         pass_s = time.perf_counter() - t0
         log(f"{label}: one streamed pass on the retrained weights "
             f"{pass_s:.3f} s ({n / pass_s:.1f} samples/s)")
-        _, idle = profile_call(
+        profile_call(
             lambda: engine.score_streaming(al.frame_store, *args),
             "streamed scoring pass")
         retrained, retrained_failed = streamed_vs_resident(
@@ -2204,7 +2200,7 @@ def phase_streaming_loop(card, seed):
         "chunks_per_pass": chunks, "launches": counts,
         "launches_by_dtype": by_dtype, "phase_s": phase_sums,
         "rounds": table, "host_warp": warp, "pass_s": pass_s,
-        "idle_share": idle, "pretrain": pre,
+        "pretrain": pre,
         "streamed_vs_resident": {"seeded": seeded, "retrained": retrained},
         "chunk_256_vs_512": chunk_err}
 
@@ -2858,13 +2854,12 @@ def phase_zoo_passes(video, seed):
             rate = n / statistics.median(times)
             log(f"{label} scoring {mode}: warm {rate:.1f} samples/s ({n} "
                 f"samples, median of 3: {statistics.median(times):.3f} s)")
-            einsums, idle = profile_call(
+            einsums = profile_call(
                 lambda: engine.score(*video.args, keep_heatmaps=False),
                 f"{label} scoring pass {mode}")
             if einsums:
                 failed.append(f"{label} {mode}: the pass ran an einsum")
-            r[mode] = {"samples_per_s": rate, "launches": counts,
-                       "idle_share": idle}
+            r[mode] = {"samples_per_s": rate, "launches": counts}
             hms[mode] = (res["heatmaps"][:32].float().cpu(),
                          torch.as_tensor(res["embeddings"][:32]))
             del res
@@ -3105,12 +3100,12 @@ def phase_pretraining(video, card, seed, init_state=None):
         strictly into a fresh SimplePose give heatmaps (32 samples) bit-
         equal to the model's in memory at those epochs; printed: ms a step
         (CUDA events, warm), each epoch's wall, each validation's wall and
-        AP, the card's idle share over one profiled epoch;
+        AP, the device time by kernel of one profiled epoch;
       - the streaming branch: train on a three-size make_synthetic_multivideo
         set (240 samples), which forces the host-RAM frames and host-warp
         crops; checked: it streams, K3 never launches, the loss is finite;
-        printed: the host warp's ms a batch, the idle share of a profiled
-        epoch;
+        printed: the host warp's ms a batch, the device time by kernel of
+        a profiled epoch;
       - jrdbpose_train's guard refuses the Posetrack21 set;
       - poseestimator_eval.validate on model_best.pth with the video as
         its TEST split; checked: its AP equals validate_gt's on the same
@@ -3258,7 +3253,7 @@ def phase_pretraining(video, card, seed, init_state=None):
         # one more epoch of a fresh trainer, profiled
         _, trainer = pt.build_trainer(cfg, ds, seed, None)
         idx = np.arange(len(ds))
-        _, idle = profile_call(
+        profile_call(
             lambda: trainer.retrain(ds.data, frames_dev, idx, 1,
                                     (ds.data.width, ds.data.height)),
             f"{label} epoch (batch {PRETRAIN_TRAIN['BATCH_SIZE']}, "
@@ -3275,7 +3270,7 @@ def phase_pretraining(video, card, seed, init_state=None):
             "best_epoch": history[[i for i, h in enumerate(history)
                                    if "ap" in h][best]]["epoch"]
             if best is not None else None,
-            "checkpoints_bit_equal": bit_equal, "idle_share": idle,
+            "checkpoints_bit_equal": bit_equal,
             "launches": counts}
 
         # ---- the streaming branch ------------------------------------------
@@ -3324,7 +3319,7 @@ def phase_pretraining(video, card, seed, init_state=None):
                                 strainer.input_size, strainer.aug,
                                 sds.joint_pairs, strainer.batch_size,
                                 seed=seed)
-        _, sidle = profile_call(
+        profile_call(
             lambda: strainer.retrain_streaming(streamer, np.arange(len(sds)),
                                                1),
             f"{label} streamed epoch")
@@ -3332,7 +3327,7 @@ def phase_pretraining(video, card, seed, init_state=None):
         out["streaming"] = {
             "samples": len(sds), "epochs": len(shistory),
             "wall_s": stream_s, "loss": [h["loss"] for h in shistory],
-            "host_warp_ms_per_batch": warp_ms, "idle_share": sidle,
+            "host_warp_ms_per_batch": warp_ms,
             "launches": scounts}
 
         # ---- jrdbpose_train's guard ------------------------------------------

@@ -46,6 +46,7 @@ from ..ops import (bbox_xyxy_to_xywh, compute_entropy, compute_hybrid,
                    crop_to_image, normalize_crops, thc_scores, tpc_scores)
 from ..ops.vl4pose import vl4pose_scores
 from ..parallel import all_gather
+from ..utils.profiling import span
 
 UNC_NONE = "None"
 UNCERTAINTIES = ("HP", "TPC", "THC_L1", "THC_L2", "THC+WPU", "WPU",
@@ -113,6 +114,7 @@ class ScoringEngine:
     def _dtype(self):
         return torch.bfloat16 if self.cfg.bf16 else torch.float32
 
+    @span("score.chunk")
     def _forward_chunk(self, model, frames, frame_idx, bboxes):
         crops, bbox_crop = crop_batch(frames, frame_idx, bboxes,
                                       self.cfg.input_size,
@@ -140,6 +142,7 @@ class ScoringEngine:
         return hm, emb.to(torch.float32), aux
 
     @torch.no_grad()
+    @span("score.stage1")
     def forward_video(self, frames, frame_idx, bboxes):
         """Chunked forward over all N samples.  frames: (F, H, W, 3) uint8
         or float in [0, 255].  Returns device tensors (N, K, h, w),
@@ -187,6 +190,7 @@ class ScoringEngine:
 
     # ---- stage 2: decode + criteria --------------------------------------
     @torch.no_grad()
+    @span("score.stage2")
     def _score_video(self, hms, bbox_crop, gt_kpts, bbox_ann_xywh, is_prev,
                      is_next, aux_params=None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
@@ -238,6 +242,7 @@ class ScoringEngine:
 
     # ---- public API -------------------------------------------------------
     @torch.no_grad()
+    @span("score.pass")
     def score_streaming(self, frame_store, frame_idx, bboxes, gt_kpts,
                         bbox_ann_xywh, is_prev, is_next,
                         keep_heatmaps: bool = False,
@@ -300,11 +305,12 @@ class ScoringEngine:
         try:
             for s in range(0, n, self.chunk):
                 e = min(s + self.chunk, n)
-                crops = warp_crops_host(frame_store, frame_idx[s:e],
-                                        fwd_mats[s:e], cfg.input_size,
-                                        mode=warp_mode)
-                hm, emb, aux = self._model_outputs(
-                    model, normalize_crops(crops, dev, self._dtype()))
+                with span("score.chunk"):
+                    crops = warp_crops_host(frame_store, frame_idx[s:e],
+                                            fwd_mats[s:e], cfg.input_size,
+                                            mode=warp_mode)
+                    hm, emb, aux = self._model_outputs(
+                        model, normalize_crops(crops, dev, self._dtype()))
                 embs.append(emb)
                 if keep_heatmaps:
                     hms_kept.append(hm.cpu())
@@ -315,13 +321,15 @@ class ScoringEngine:
                 stage2(*pending, next_head=None)
         finally:
             model.train(was_training)
-        res = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
-        res["embeddings"] = torch.cat(embs).cpu().numpy()
+        with span("score.fetch"):
+            res = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+            res["embeddings"] = torch.cat(embs).cpu().numpy()
         res["bbox_crop"] = bbox_crop
         if keep_heatmaps:
             res["heatmaps"] = torch.cat(hms_kept)
         return res
 
+    @span("score.pass")
     def score(self, frames, frame_idx, bboxes, gt_kpts, bbox_ann_xywh,
               is_prev, is_next,
               keep_heatmaps: bool = True) -> Dict[str, np.ndarray]:
@@ -340,9 +348,10 @@ class ScoringEngine:
             hms, bbox_crop, dev(gt_kpts, torch.float32),
             dev(bbox_ann_xywh, torch.float32), dev(is_prev, torch.bool),
             dev(is_next, torch.bool), aux)
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        res["embeddings"] = embs.cpu().numpy()
-        res["bbox_crop"] = bbox_crop.cpu().numpy()
+        with span("score.fetch"):
+            res = {k: v.cpu().numpy() for k, v in out.items()}
+            res["embeddings"] = embs.cpu().numpy()
+            res["bbox_crop"] = bbox_crop.cpu().numpy()
         if keep_heatmaps:
             res["heatmaps"] = hms
         return res

@@ -33,6 +33,7 @@ from typing import Dict, Union
 import numpy as np
 
 from ..ops.oks import COCO_SIGMAS
+from ..utils.profiling import span
 
 IOU_THRS = np.linspace(.5, .95, 10)
 REC_THRS = np.linspace(.0, 1.00, 101)
@@ -93,6 +94,7 @@ def _compute_oks_matrix(dts, gts, sigmas):
     return ious
 
 
+@span("eval.map")
 def evaluate_map(res: Union[str, list], ann: Union[str, dict],
                  sigmas=None) -> Dict[str, float]:
     """COCO keypoints evaluation of `res` (list of detection annotations)

@@ -18,6 +18,7 @@ import numpy as np
 from scipy.optimize import linear_sum_assignment
 
 from ..ops.oks import JRDB_SIGMAS, oks_matrix
+from ..utils.profiling import span
 
 __all__ = ["ospa_for_loc", "get_ospa"]
 
@@ -55,6 +56,7 @@ def get_ospa(gt_annots, pr_annots, sigmas=None):
     return (matching + cardinality) / max(num_gt, num_pr)
 
 
+@span("eval.ospa")
 def ospa_for_loc(ann_json_path: Union[str, dict],
                  pr_json_path: Union[str, list], sigmas=None) -> float:
     """Mean per-frame OSPA over all GT images (pose_eval.py:338-367)."""

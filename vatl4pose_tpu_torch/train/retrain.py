@@ -49,6 +49,7 @@ from ..ops.heatmap import gaussian_target
 from ..ops.warp import normalize_crops
 from ..parallel import Sharding, broadcast_module, build_sharded_train_step
 from ..utils.metrics import acc_tensor
+from ..utils.profiling import span
 from .optim import build_optimizer, exponential_lr, set_lr
 
 __all__ = ["Retrainer", "AETrainer"]
@@ -182,6 +183,7 @@ class Retrainer:
                   else p for k, p in self.model.named_parameters()}
         return torch.func.functional_call(self.model, params, (x,))
 
+    @span("retrain.call")
     def retrain(self, data, frames, indices, num_epochs: int, img_wh,
                 log=None):
         """`num_epochs` epochs over the samples `indices` of `data`
@@ -193,57 +195,63 @@ class Retrainer:
         bs = self.batch_size
         # every step's geometry first, in the rng order of a per-step loop
         lrs, ns, fi, mats, joints, vis, valid = ([] for _ in range(7))
-        for _ in range(num_epochs):
-            lr = self.lr_of(self.epoch_counter)
-            order = self.rng.permutation(len(indices))
-            for s in range(0, len(order), bs):
-                sel = indices[order[s:s + bs]]
-                # cycle-pad, not zero-pad: BatchNorm reduces over the whole
-                # batch, and equal replication keeps the batch statistics;
-                # `valid` keeps the replicas out of the loss
-                sel_p = np.resize(sel, bs)
-                m, _, j, v, _ = train_sample_geometry(
-                    data.bboxes[sel_p], data.joints_xy[sel_p],
-                    data.joints_vis[sel_p], img_wh, self.input_size,
-                    self.aug, self.joint_pairs, self.rng)
-                ok = np.zeros(bs, bool)
-                ok[:len(sel)] = True
-                for lst, a in ((lrs, lr), (ns, len(sel)),
-                               (fi, data.frame_idx[sel_p]), (mats, m),
-                               (joints, j), (vis, v), (valid, ok)):
-                    lst.append(a)
-            self.epoch_counter += 1
+        with span("retrain.geometry"):
+            for _ in range(num_epochs):
+                lr = self.lr_of(self.epoch_counter)
+                order = self.rng.permutation(len(indices))
+                for s in range(0, len(order), bs):
+                    sel = indices[order[s:s + bs]]
+                    # cycle-pad, not zero-pad: BatchNorm reduces over the whole
+                    # batch, and equal replication keeps the batch statistics;
+                    # `valid` keeps the replicas out of the loss
+                    sel_p = np.resize(sel, bs)
+                    m, _, j, v, _ = train_sample_geometry(
+                        data.bboxes[sel_p], data.joints_xy[sel_p],
+                        data.joints_vis[sel_p], img_wh, self.input_size,
+                        self.aug, self.joint_pairs, self.rng)
+                    ok = np.zeros(bs, bool)
+                    ok[:len(sel)] = True
+                    for lst, a in ((lrs, lr), (ns, len(sel)),
+                                   (fi, data.frame_idx[sel_p]), (mats, m),
+                                   (joints, j), (vis, v), (valid, ok)):
+                        lst.append(a)
+                self.epoch_counter += 1
         if not ns:
             return 0.0, 0.0
-        fi = np.stack(fi).astype(np.int64)
-        if fi.min() < 0 or fi.max() >= frames.shape[0]:
-            raise IndexError(f"frame index outside [0, {frames.shape[0]})")
-        f32 = torch.float32
-        steps = [fi, np.stack(mats), np.stack(joints), np.stack(vis),
-                 np.stack(valid)]
-        if self.mesh is not None:
-            # this rank's block of every step's batch
-            steps = [Sharding(self.mesh, (None, "data")).local(a)
-                     for a in steps]
-        fi, mats, joints, vis, valid = (
-            self._upload(a, t) for a, t in zip(
-                steps, (torch.int64, f32, f32, f32, torch.bool)))
+        with span("retrain.upload"):
+            fi = np.stack(fi).astype(np.int64)
+            if fi.min() < 0 or fi.max() >= frames.shape[0]:
+                raise IndexError(f"frame index outside [0, {frames.shape[0]})")
+            f32 = torch.float32
+            steps = [fi, np.stack(mats), np.stack(joints), np.stack(vis),
+                     np.stack(valid)]
+            if self.mesh is not None:
+                # this rank's block of every step's batch
+                steps = [Sharding(self.mesh, (None, "data")).local(a)
+                         for a in steps]
+            fi, mats, joints, vis, valid = (
+                self._upload(a, t) for a, t in zip(
+                    steps, (torch.int64, f32, f32, f32, torch.bool)))
         stats = []
         was_training = self.model.training
         self.model.train()
         try:
             for k, lr in enumerate(lrs):
                 set_lr(self.optimizer, lr)
-                stats.append(self.train_step(frames, fi[k], mats[k],
-                                             joints[k], vis[k], valid[k]))
+                with span("retrain.step"):
+                    stats.append(self.train_step(frames, fi[k], mats[k],
+                                                 joints[k], vis[k],
+                                                 valid[k]))
         finally:
             self.model.train(was_training)
         # accuracy over the cycled batch counts replicas of real rows too
-        loss_avg, acc_avg = _weighted_stats(stats, ns)
+        with span("retrain.stats"):
+            loss_avg, acc_avg = _weighted_stats(stats, ns)
         if log:
             log(f"loss: {loss_avg:.7f} | acc: {acc_avg:.4f}")
         return loss_avg, acc_avg
 
+    @span("retrain.call")
     def retrain_streaming(self, streamer, indices, num_epochs: int,
                           log=None):
         """`num_epochs` epochs over `indices` on the crops of `streamer`
@@ -264,8 +272,9 @@ class Retrainer:
                     valid[:n] = True
                     crops, joints, vis = (np.resize(a, (bs,) + a.shape[1:])
                                           for a in (crops, joints, vis))
-                    stats.append(self.train_step_crops(crops, joints, vis,
-                                                       valid))
+                    with span("retrain.step"):
+                        stats.append(self.train_step_crops(crops, joints,
+                                                           vis, valid))
                     counts.append(n)
                 self.epoch_counter += 1
         finally:
@@ -273,7 +282,8 @@ class Retrainer:
         if self.mesh is not None:
             broadcast_module(self.model, self.mesh.group("data"),
                              self.optimizer)
-        loss_avg, acc_avg = _weighted_stats(stats, counts)
+        with span("retrain.stats"):
+            loss_avg, acc_avg = _weighted_stats(stats, counts)
         if log:
             log(f"loss: {loss_avg:.7f} | acc: {acc_avg:.4f}")
         return loss_avg, acc_avg
@@ -292,6 +302,7 @@ class AETrainer:
         self.batch_size = batch_size
         self.rng = np.random.default_rng(seed)
 
+    @span("ae.finetune")
     def train(self, ae, features: np.ndarray):
         """Fine-tune `ae` in place on (n, D) features with a fresh Adam;
         returns `ae`."""
