@@ -4,13 +4,18 @@ summation scheme, each measured on one card against float64.
 
     python3 scripts/k1_f32_precision.py [--no-loop]
 
-The shipped kernel (csrc/fused_bottleneck.cu) splits its f32 operands and
-sums their products one way, scheme 12.  scripts/k1_f32_schemes.patch turns
-it into the study source, in which a macro K1_F32_SCHEME picks one of 13
-(the patch lists them); the patched source must hash to STUDY_SHA256, the source this
-study measured, or the script refuses.  Each scheme is compiled with nvcc
-into build/k1_study/ and, while it is measured, bound in place of the
-shipped library, so that kernels.fused_bottleneck_chain launches it.
+The study's base, scripts/k1_study_base.cu, is the chain kernel as it was
+when the study measured it: it splits its f32 operands in shared memory and
+sums their products one way, scheme 12, the arithmetic that the shipped
+kernel (csrc/fused_bottleneck.cu) still does, bit for bit, with its weights
+split by the wrapper and each promotion run under the next chunk's
+products.
+scripts/k1_f32_schemes.patch turns the base into the study source, in
+which a macro K1_F32_SCHEME picks one of 13 (the patch lists them); the
+patched source must hash to STUDY_SHA256, the source this study measured,
+or the script refuses.  Each scheme is compiled with nvcc into
+build/k1_study/ and launched as the base's own wrapper launched it
+(scripts/k1_base.py).
 
 For each scheme:
   1. the four R50 chains at N=512 on chip_smoke.py phase 2's random
@@ -31,9 +36,7 @@ limit.  Needs one CUDA card and nvcc; exits non-zero without them.
 
 from __future__ import annotations
 
-import contextlib
 import copy
-import ctypes
 import hashlib
 import json
 import re
@@ -43,6 +46,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PATCH = ROOT / "scripts" / "k1_f32_schemes.patch"
+BASE = ROOT / "scripts" / "k1_study_base.cu"
 STUDY_SHA256 = \
     "283bf7744e6d0018c2e058a28f11b6026642d5f7062cdf8e38539e5cd0d7505a"
 SCHEMES = {0: "3 products, one accumulator", 1: "hi*hi only",
@@ -91,9 +95,7 @@ def apply_patch(text, patch):
 
 
 def study_source():
-    from vatl4pose_tpu_torch.kernels import _build
-    text = apply_patch((_build.CSRC / "fused_bottleneck.cu").read_text(),
-                       PATCH.read_text())
+    text = apply_patch(BASE.read_text(), PATCH.read_text())
     digest = hashlib.sha256(text.encode()).hexdigest()
     if digest != STUDY_SHA256:
         raise ValueError(f"the study source hashes to {digest}, not to the "
@@ -103,47 +105,28 @@ def study_source():
 
 def build_schemes():
     """nvcc, once per scheme, all at once; binds each that builds."""
+    from scripts import k1_base
     from vatl4pose_tpu_torch.kernels import _build
     out_dir = _build.BUILD_DIR / "k1_study"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / "fused_bottleneck_schemes.cu"
     src.write_text(study_source())
-    procs = {s: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, f"-DK1_F32_SCHEME={s}",
-         "-Xptxas", "-v", "-o", str(out_dir / f"scheme{s}.so"), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for s in SCHEMES}
+    procs = {s: k1_base.nvcc(src, out_dir / f"scheme{s}.so",
+                             [f"-DK1_F32_SCHEME={s}"])
+             for s in SCHEMES}
     for s, proc in procs.items():
         PTXAS[s] = proc.communicate()[0]
         if proc.returncode != 0:
             print(f"scheme {s}: nvcc exit {proc.returncode}\n"
                   f"{PTXAS[s][-4000:]}", file=sys.stderr)
             continue
-        lib = ctypes.CDLL(str(out_dir / f"scheme{s}.so"))
-        for fn, argtypes in _build.SIGNATURES["fused_bottleneck"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        LIBS[s] = lib
+        LIBS[s] = k1_base.bind(out_dir / f"scheme{s}.so")
     return sorted(LIBS)
 
 
-@contextlib.contextmanager
-def routed(scheme):
-    """kernels.fused_bottleneck_chain launches `scheme`'s build."""
-    from vatl4pose_tpu_torch.kernels import _build
-    _build.load("fused_bottleneck")
-    shipped = _build._libs["fused_bottleneck"]
-    _build._libs["fused_bottleneck"] = LIBS[scheme]
-    try:
-        yield
-    finally:
-        _build._libs["fused_bottleneck"] = shipped
-
-
 def launch(scheme, x, *ws):
-    from vatl4pose_tpu_torch.kernels import fused_bottleneck_chain
-    with routed(scheme):
-        return fused_bottleneck_chain(x, *ws)
+    from scripts import k1_base
+    return k1_base.launch(LIBS[scheme], x, *ws)
 
 
 def chain_errors(cs, built):

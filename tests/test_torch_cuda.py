@@ -14,6 +14,7 @@ import torch
 from vatl4pose_tpu_torch.kernels import (bottleneck_chain_reference,
                                          fused_bottleneck_chain,
                                          fused_postprocess,
+                                         k_major_split,
                                          postprocess_reference,
                                          reset_launch_counts, rot_warp_crop,
                                          rot_warp_crop_reference)
@@ -106,6 +107,56 @@ def test_chain_kernel_at_stage_and_edge_shapes(cuda, dtype, shape):
     else:
         assert err.max().item() <= 5e-2 * scale
         assert err.mean().item() <= 5e-3 * scale
+
+
+@pytest.mark.cuda
+def test_k_major_split_kernel_equals_tf32_split(cuda):
+    """k_major_split_kernel against its plain version bit for bit: ragged
+    tiles (C = 48, P = 40) and R50's last stage, with ties, TF32 values,
+    subnormals and the largest finite values planted among the weights."""
+    special = np.array([0x3F801000, 0xBF801000, 0x3F800000, 0x00000001,
+                        0x00001000, 0x807FFFFF, 0x7F7FFFFF, 0xFF7FFFFF],
+                       dtype=np.uint32).view(np.float32)
+    for nb, C, P in ((2, 48, 40), (2, 2048, 512)):
+        ws = [RNG.normal(0, 0.1, s).astype(np.float32)
+              for s in ((nb, C, P), (nb, 3, 3, P, P), (nb, P, C))]
+        for w in ws:
+            w.reshape(-1)[RNG.choice(w.size, 64)] = np.resize(special, 64)
+        cpu = [torch.from_numpy(w) for w in ws]
+        reset_launch_counts()
+        got = k_major_split(*(w.to(cuda) for w in cpu))
+        assert fused_bottleneck_chain.split_launches == 1
+        for g, r in zip(got, k_major_split(*cpu)):
+            assert torch.equal(g.cpu().view(torch.int32),
+                               r.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernel_splits_weights_once_an_f32_call(cuda, dtype):
+    x = torch.tensor(RNG.normal(0, 1, (2, 9, 7, 64)), dtype=dtype,
+                     device=cuda).relu()
+    ws = he_chain_operands(2, 64, 16, dtype, cuda)
+    reset_launch_counts()
+    for calls in (1, 2):
+        fused_bottleneck_chain(x, *ws)
+        assert fused_bottleneck_chain.launches == calls
+        assert fused_bottleneck_chain.split_launches == \
+            (calls if dtype == torch.float32 else 0)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_f32_repeats_bit_for_bit(cuda):
+    """Two f32 runs on the same operands give the same bits: R50's third
+    stage (the 3x3's K = 2304: 288 k-steps a tile) and a ragged edge."""
+    for N, H, W, C, P, nb in ((8, 16, 12, 1024, 256, 3), (3, 5, 7, 48, 24,
+                                                          2)):
+        x = torch.tensor(RNG.normal(0, 1, (N, H, W, C)),
+                         dtype=torch.float32, device=cuda).relu()
+        ws = he_chain_operands(nb, C, P, torch.float32, cuda)
+        first = fused_bottleneck_chain(x, *ws)
+        second = fused_bottleneck_chain(x, *ws)
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -280,10 +280,12 @@ class TestPostprocess:
 
 def test_k1_study_patch_rebuilds_the_measured_source():
     """scripts/k1_f32_precision.py rebuilds the f32 summation schemes it
-    measured from the shipped chain kernel and scripts/k1_f32_schemes.patch.
-    The patch applies to csrc/fused_bottleneck.cu and gives the source the
-    study hashed; the shipped kernel has one scheme and no macro to pick
-    another; a kernel line the patch expects, changed, is refused."""
+    measured from the study's base, scripts/k1_study_base.cu (the chain
+    kernel as the study measured it, with the shipped kernel's arithmetic,
+    scheme 12), and scripts/k1_f32_schemes.patch.  The patch applies to the
+    base and gives the source the study hashed; the shipped kernel has one
+    scheme and no macro to pick another; a base line the patch expects,
+    changed, is refused."""
     import importlib.util
     import pathlib
     root = pathlib.Path(__file__).resolve().parent.parent
@@ -296,9 +298,10 @@ def test_k1_study_patch_rebuilds_the_measured_source():
     shipped = (root / "vatl4pose_tpu_torch" / "csrc" /
                "fused_bottleneck.cu").read_text()
     assert "K1_F32_SCHEME" not in shipped
+    base = study.BASE.read_text()
     patch = study.PATCH.read_text()
     line = "        Mma<T, BN>::run(part, da, dbl);\n"
-    assert shipped.count(line) == 1
+    assert base.count(line) == 1
     with pytest.raises(ValueError, match="does not apply"):
-        study.apply_patch(shipped.replace(line, line.replace("dbl", "db")),
+        study.apply_patch(base.replace(line, line.replace("dbl", "db")),
                           patch)

@@ -6,6 +6,8 @@ taps past every edge.  Values agree within 1e-5 of the reference's max
 magnitude (f32 sums in another order), the deformable convolution's
 gradients (autograd against jax.grad) within 1e-4."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,9 @@ from vatl4pose_tpu.kernels.deform_pool import \
 from vatl4pose_tpu.kernels.roi_align import roi_align as jax_roi_align
 from vatl4pose_tpu_torch.kernels import (DeformConv2d, deform_conv2d,
                                          deform_roi_pool, roi_align)
+from vatl4pose_tpu_torch.kernels.fused_bottleneck import (_k_major,
+                                                          k_major_split,
+                                                          tf32_split)
 
 torch.set_num_threads(1)
 RNG = np.random.default_rng(7213)
@@ -140,3 +145,102 @@ def test_deform_roi_pool_matches_jax(no_trans, group_size):
         plain = deform_roi_pool(to_nchw(data), torch.from_numpy(ROIS),
                                 **dict(kw, no_trans=True))
         assert rel_err(got, plain) > 1e-2
+
+
+# K1's f32 weight split (kernels/fused_bottleneck.tf32_split, the plain
+# version of the kernel's cvt.rna.tf32.f32 split), against a rounding
+# written from the definition in float64: TF32 keeps 10 of f32's 23 stored
+# mantissa bits, so its values are spaced 2^(e - 10) in [2^e, 2^(e + 1))
+# and 2^-136 among the subnormals; ties round away from zero.
+
+def _bits(values):
+    return torch.from_numpy(
+        np.array(values, dtype=np.uint32).view(np.int32)).view(torch.float32)
+
+
+def _tf32_rna(v):
+    if not np.isfinite(v) or v == 0:
+        return v
+    e = max(math.frexp(abs(v))[1] - 1, -126)
+    ulp = 2.0 ** (e - 10)
+    return math.copysign(math.floor(abs(v) / ulp + 0.5) * ulp, v)
+
+
+def _split_ref(x):
+    with np.errstate(over="ignore"):     # past the largest TF32 value
+        hi = np.float32(_tf32_rna(float(x)))
+        return hi, np.float32(_tf32_rna(float(np.float32(x - hi))))
+
+
+def _assert_split(x):
+    hi, lo = tf32_split(x)
+    for v, h, l in zip(x.numpy(), hi.numpy(), lo.numpy()):
+        rh, rl = _split_ref(v)
+        assert (h.view(np.int32), l.view(np.int32)) \
+            == (rh.view(np.int32), rl.view(np.int32)), (v, h, l, rh, rl)
+    return hi, lo
+
+
+@pytest.mark.parametrize("sign", [1, -1], ids=["positive", "negative"])
+def test_tf32_split_rounds_a_tie_away_from_zero(sign):
+    # 1 + 2^-11, 3 * 2^-13 * (1 + 2^-11), 2^100 * (1 + 2^-11): halfway
+    # between two TF32 values
+    x = sign * _bits([0x3F801000, 0x3A401000, 0x71801000])
+    hi, lo = _assert_split(x)
+    assert (hi.abs() > x.abs()).all()
+    assert torch.equal(hi + lo, x)
+
+
+def test_tf32_split_keeps_a_tf32_value_whole():
+    x = _bits([0x3F800000, 0xC0402000, 0x3DCCC000, 0x00800000, 0x7F7FE000,
+               0x80002000, 0x00000000])
+    hi, lo = _assert_split(x)
+    assert torch.equal(hi.view(torch.int32), x.view(torch.int32))
+    assert (lo == 0).all()
+
+
+def test_tf32_split_rounds_subnormals():
+    # the smallest subnormal, a subnormal tie, the largest subnormal, and
+    # negatives: rounded on the same 13 bits, with no flush to zero
+    x = _bits([0x00000001, 0x00001000, 0x00001FFF, 0x007FFFFF, 0x00123456,
+               0x80001000, 0x807FFFFF])
+    hi, _ = _assert_split(x)
+    assert hi[3].item() == 2.0 ** -126     # carried into the exponent
+    assert hi[1].item() == 2.0 ** -136 and hi[5].item() == -2.0 ** -136
+
+
+def test_tf32_split_rounds_the_largest_finite_value_to_infinity():
+    x = _bits([0x7F7FFFFF, 0xFF7FFFFF, 0x7F7FEFFF])
+    hi, lo = _assert_split(x)
+    assert hi[0].item() == math.inf and lo[0].item() == -math.inf
+    assert hi[1].item() == -math.inf and lo[1].item() == math.inf
+    assert math.isfinite(hi[2].item())      # below the tie: stays finite
+
+
+def test_tf32_split_halves_sum_to_the_input():
+    x = torch.from_numpy(
+        (RNG.standard_normal(100_000) * 10.0 ** RNG.uniform(-20, 20, 100_000))
+        .astype(np.float32))
+    hi, lo = tf32_split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs()).max().item()
+    assert rel <= 2.0 ** -22, rel
+    _assert_split(x[:200])
+
+
+def test_k_major_split_lays_out_as_k_major():
+    """k_major_split's plain version: _k_major's layouts, split."""
+    nb, C, P = 2, 24, 16
+    ws = [torch.from_numpy(RNG.normal(0, 1, s).astype(np.float32))
+          for s in ((nb, C, P), (nb, 3, 3, P, P), (nb, P, C))]
+    halves = k_major_split(*ws)
+    for t, (hi, lo) in zip(_k_major(*ws), zip(halves[::2], halves[1::2])):
+        assert hi.shape == lo.shape == t.shape and hi.is_contiguous()
+        torch.testing.assert_close(hi.double() + lo.double(), t.double(),
+                                   rtol=2.0 ** -22, atol=0)
+    exact = [tf32_split(w)[0] for w in ws]     # TF32 values: lo is 0
+    halves = k_major_split(*exact)
+    for t, hi, lo in zip(_k_major(*exact), halves[::2], halves[1::2]):
+        assert torch.equal(hi, t) and not lo.any()

@@ -35,8 +35,9 @@ _F = ctypes.c_float
 # bits), every size an int; each entry returns cudaGetLastError()
 SIGNATURES = {
     "fused_bottleneck": {
-        "fused_bottleneck_chain_f32": [_P] * 13 + [_I] * 6 + [_P],
+        "fused_bottleneck_chain_f32": [_P] * 16 + [_I] * 6 + [_P],
         "fused_bottleneck_chain_bf16": [_P] * 13 + [_I] * 6 + [_P],
+        "k_major_split_f32": [_P] * 9 + [_I] * 3 + [_P],
     },
     "postprocess": {
         "heatmap_postprocess_f32": [_P] * 4 + [_I] * 4 + [_P],

@@ -12,7 +12,11 @@ to the stream dtype.  Used by models/resnet.py when `fused_eval=True`.
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; any other device raises, and so do CUDA
 operands the kernel does not take (C or P not a multiple of 8: its TMA
-rows need 16-byte strides).
+rows need 16-byte strides).  In f32 the kernel takes its weights K-major
+and split into TF32 halves (3xTF32), which `k_major_split` makes in one
+launch of the same source's k_major_split_kernel a call
+(`fused_bottleneck_chain.split_launches` counts them); `tf32_split` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from . import _build
 
 _DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-__all__ = ["fold_bn", "fused_bottleneck_chain", "bottleneck_chain_reference"]
+__all__ = ["fold_bn", "fused_bottleneck_chain", "bottleneck_chain_reference",
+           "tf32_split", "k_major_split"]
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -88,6 +93,51 @@ def _k_major(w1, w2, w3):
             w3.transpose(1, 2).contiguous())
 
 
+def tf32_split(w):
+    """(hi, lo) of a float32 tensor as the kernel's `split` makes them with
+    cvt.rna.tf32.f32: hi = w rounded to nearest, ties away from zero, on its
+    13 low mantissa bits (subnormals too; past the largest TF32 value it
+    rounds to infinity), lo = the same rounding of w - hi."""
+    def rna(v):
+        bits = v.view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+        return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
+def k_major_split(w1, w2, w3):
+    """The f32 kernel's B operands: `_k_major`'s three layouts, each split
+    by `tf32_split`: (w1t_hi, w1t_lo, w2t_hi, w2t_lo, w3t_hi, w3t_lo).  One
+    launch of k_major_split_kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if w1.device.type == "cpu":
+        return tuple(half for w in _k_major(w1, w2, w3)
+                     for half in tf32_split(w))
+    if w1.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w1.device}")
+    nb, C, P = w1.shape
+    for w, shape in ((w1, (nb, C, P)), (w2, (nb, 3, 3, P, P)),
+                     (w3, (nb, P, C))):
+        if tuple(w.shape) != shape or w.dtype != torch.float32 \
+                or w.device != w1.device or not w.is_contiguous():
+            raise ValueError(f"want contiguous float32 {shape} on "
+                             f"{w1.device}, got {tuple(w.shape)} {w.dtype} "
+                             f"on {w.device}")
+    outs = [torch.empty(shape, dtype=torch.float32, device=w1.device)
+            for shape in ((nb, P, C),) * 2 + ((nb, P, 9, P),) * 2
+            + ((nb, C, P),) * 2]
+    lib = _build.load("fused_bottleneck")
+    with torch.cuda.device(w1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.k_major_split_f32(
+            w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+            *(o.data_ptr() for o in outs), C, P, nb, stream)
+    _build.check(err, "k_major_split")
+    fused_bottleneck_chain.split_launches += 1
+    return tuple(outs)
+
+
 def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
     """Run nb chained bottlenecks over x: (N, H, W, C) float32 or bf16.
 
@@ -105,18 +155,22 @@ def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
                          f"of 8, got C={C}, P={P}")
     if x.data_ptr() % 16:
         raise ValueError("x must start on a 16-byte boundary")
-    w1t, w2t, w3t = _k_major(w1, w2, w3)
     lib = _build.load("fused_bottleneck")
-    fn = (lib.fused_bottleneck_chain_f32 if x.dtype == torch.float32
-          else lib.fused_bottleneck_chain_bf16)
+    if x.dtype == torch.float32:
+        w1h, w1l, w2h, w2l, w3h, w3l = k_major_split(w1, w2, w3)
+        fn, wts = lib.fused_bottleneck_chain_f32, (
+            w1h, w1l, s1, b1, w2h, w2l, s2, b2, w3h, w3l, s3, b3)
+    else:
+        w1t, w2t, w3t = _k_major(w1, w2, w3)
+        fn, wts = lib.fused_bottleneck_chain_bf16, (
+            w1t, s1, b1, w2t, s2, b2, w3t, s3, b3)
     out = torch.empty_like(x)
     y1 = torch.empty((N, H, W, P), dtype=x.dtype, device=x.device)
     y2 = torch.empty_like(y1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-                 *(w.data_ptr() for w in (w1t, s1, b1, w2t, s2, b2, w3t, s3,
-                                          b3)), N, H, W, C, P, nb, stream)
+                 *(w.data_ptr() for w in wts), N, H, W, C, P, nb, stream)
     _build.check(err, "fused_bottleneck_chain")
     fused_bottleneck_chain.launches += 1
     fused_bottleneck_chain.launches_by_dtype[_DTYPE[x.dtype]] += 1
@@ -125,3 +179,4 @@ def fused_bottleneck_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
 
 fused_bottleneck_chain.launches = 0
 fused_bottleneck_chain.launches_by_dtype = Counter()
+fused_bottleneck_chain.split_launches = 0
