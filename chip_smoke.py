@@ -5,7 +5,7 @@
 
 Phases, each of which fails the run on error, each with its wall time:
   1. card and build: the card's name and power limit, torch/CUDA versions,
-     the three CUDA kernels built with nvcc from csrc/, all at once
+     the four CUDA kernels built with nvcc from csrc/, all at once
      (ptxas report included), and the tensor-core instructions (HGMMA,
      HMMA) of K1's f32 and bf16 kernels in the built library's SASS
      (cuobjdump), none of which fails the run;
@@ -95,7 +95,12 @@ Phases, each of which fails the run on error, each with its wall time:
      functions, checked as phase 5's (K2 and K3 once a pass, K3 once a
      step, K1 never); the JAX package's plain kernels in eager PyTorch
      (deformable convolution v1/v2 with gradients, RoIAlign, deformable
-     PS-RoI pooling) on the card against the CPU, timed;
+     PS-RoI pooling) on the card against the CPU, timed; Fast Pose (DCN)
+     (AlphaPose's FastPose-R50 with 13 deformable 3x3s in stages 2-4): a
+     THC+WPU pass in chunks of 512 (K4 13, K1 1 a chunk), K4's columns at
+     those 13 inputs bit for bit the eager route's and timed beside its
+     bound, a pass in chunks of 256 (K4 26), the pass on the eager route
+     (K4 0, the same heatmaps), warm samples/s;
  11. the entry points before the AL loop (phase_pretraining):
      posetrack_train at full width (SimplePose-R50, 256x192, batch 180,
      the simplebaseline config's schedule cut to 40 epochs with its DPG
@@ -1915,7 +1920,8 @@ def phase_al_loop(video, card, seed, speedup=False):
                                             calls, loop_s, n, rounds, card)
     passes, steps = calls.score_calls, calls.train_steps
     want = {"fused_bottleneck_chain": 4 * passes, "fused_postprocess": passes,
-            "rot_warp_crop": passes + steps}
+            "rot_warp_crop": passes + steps,
+            "deform_im2col": 0}
     dt = "bf16" if speedup else "f32"
     want_dtype = {"fused_bottleneck_chain": {dt: 4 * passes},
                   "rot_warp_crop": {dt: passes + steps}}
@@ -2128,7 +2134,8 @@ def phase_streaming_loop(card, seed):
         chunks = -(-n // al.engine.chunk)
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * chunks * passes,
-                "fused_postprocess": chunks * passes, "rot_warp_crop": 0}
+                "fused_postprocess": chunks * passes, "rot_warp_crop": 0,
+                "deform_im2col": 0}
         log(f"{label}: {n} samples, {chunks} chunks of {al.engine.chunk}, "
             f"frames {al.frame_store.total_bytes / 2 ** 30:.3f} GiB over "
             f"the budget {STREAM_BUDGET_GB} GiB; launches by kernel and "
@@ -2593,7 +2600,8 @@ def phase_other_scoring(video, seed):
         wall = time.perf_counter() - t0
         counts = {k.__name__: k.launches for k in KERNELS}
         want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
-                "rot_warp_crop": 1}
+                "rot_warp_crop": 1,
+                "deform_im2col": 0}
         if counts != want:
             failed.append(f"{u}: launches {counts}, want {want}")
         unc = res["unc"]
@@ -2703,7 +2711,8 @@ def phase_other_loops(video, card, seed):
             label, rj, cycles, counts, calls, loop_s, n, rounds, card)
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * passes,
-                "fused_postprocess": passes, "rot_warp_crop": passes + steps}
+                "fused_postprocess": passes, "rot_warp_crop": passes + steps,
+                "deform_im2col": 0}
         want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
                       "rot_warp_crop": {"f32": passes + steps}}
         if passes != rounds + 1 or steps == 0 or counts != want \
@@ -2770,7 +2779,9 @@ def phase_study(video, seed):
         + json.dumps(figs.summary()))
     if [p["unc_lambda"] for _, p, _ in hist] != [0.001, 0.01][:STUDY_TRIALS] \
             or not all(math.isfinite(v) for _, _, v in hist) \
-            or min(counts.values()) == 0:
+            or 0 in (counts["fused_bottleneck_chain"],
+                     counts["fused_postprocess"], counts["rot_warp_crop"]) \
+            or counts["deform_im2col"]:
         raise AssertionError(f"study: {hist}, launches {counts}")
     return {"wall_s": wall, "trials": [[p, v] for _, p, v in hist],
             "best_value": study.best_value, "best_params": study.best_params,
@@ -2838,7 +2849,8 @@ def phase_zoo_passes(video, seed):
         model.cuda()
         ae.cuda()
         want = {"fused_bottleneck_chain": k1, "fused_postprocess": 1,
-                "rot_warp_crop": 1}
+                "rot_warp_crop": 1,
+                "deform_im2col": 0}
         r, hms = {}, {}
         for mode in ("f32", "bf16"):
             engine = ScoringEngine(model, ScoringConfig(
@@ -2932,7 +2944,8 @@ def phase_zoo_retrain(video, seed):
         log(f"{label} retrain: {steps} steps, {ms:.1f} ms/step warm, loss "
             f"and acc by epoch {curve}, launches {counts}")
         want = {"fused_bottleneck_chain": 0, "fused_postprocess": 0,
-                "rot_warp_crop": steps}
+                "rot_warp_crop": steps,
+                "deform_im2col": 0}
         if counts != want or not np.isfinite(curve).all():
             raise AssertionError(f"{label} retrain: launches {counts}, want "
                                  f"{want}; curve {curve}")
@@ -2970,7 +2983,8 @@ def phase_hrnet_loop(video, card, seed):
                                             calls, loop_s, n, rounds, card)
     passes, steps = calls.score_calls, calls.train_steps
     want = {"fused_bottleneck_chain": 0, "fused_postprocess": passes,
-            "rot_warp_crop": passes + steps}
+            "rot_warp_crop": passes + steps,
+            "deform_im2col": 0}
     want_dtype = {"fused_bottleneck_chain": {},
                   "rot_warp_crop": {"f32": passes + steps}}
     if passes != rounds + 1 or steps == 0 or counts != want \
@@ -3058,6 +3072,166 @@ def phase_plain_kernels(seed):
         raise AssertionError("plain kernels, card vs CPU: "
                              + "; ".join(failed))
     return out
+
+
+# Fast Pose (DCN): AlphaPose's configs/coco/resnet/
+# 256x192_res50_lr1e-3_2x-dcn.yaml, FastPose's SE-ResNet-50 with a
+# deformable 3x3 in every block of stages 2-4, the strided ones included
+# (FALLBACK_ON_STRIDE false): 13 a forward
+FASTPOSE_DCN_MODEL = {"TYPE": "FastPose", "NUM_LAYERS": 50,
+                      "DCN": {"MODULATED": False, "DEFORM_GROUP": 1,
+                              "FALLBACK_ON_STRIDE": False},
+                      "STAGE_WITH_DCN": [False, True, True, True]}
+DCN_CONVS = 13
+
+
+def phase_fastpose_dcn(video, seed):
+    """Fast Pose (DCN) (phase 3's video, 512 samples, 256x192, seeded
+    random weights, the deformable 3x3s' kernels He-scaled too): one
+    THC+WPU scoring pass in f32 in chunks of 512 with the counters reset
+    just before it (K4 13 a chunk, K1 1 a chunk on stage 1's tail, K2 1,
+    K3 1), whose 13 deformable 3x3s' inputs are kept; at each of those 13
+    shapes K4's columns against the eager route's (`deform_columns`) bit
+    for bit, at the model's own offsets and at 8 times them (taps off the
+    maps' edges), K4's time (CUDA events) beside the eager route's and
+    K4's bound (bytes: the columns written, the input and the offsets
+    read once, over the HBM rate); the pass in chunks of 256 (K4 26, K1
+    2); the pass with the deformable 3x3s on the eager route (K4 0), whose
+    heatmaps must equal K4's within 1e-6 of their max magnitude (the same
+    columns, the same product); warm samples/s (median of 3)."""
+    import torch
+    from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
+    from vatl4pose_tpu_torch.kernels import (KERNELS, DeformConv2d,
+                                             deform_columns, deform_im2col,
+                                             reset_launch_counts)
+    n = len(video.args[1])
+    chunks = -(-n // BATCH)
+    failed = []
+    model, ae = make_zoo_model(FASTPOSE_DCN_MODEL, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    convs = [m for m in model.modules() if isinstance(m, DeformConv2d)]
+    with torch.no_grad():
+        for m in convs:
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                           * (2.0 / m.weight[0].numel()) ** 0.5)
+    model.cuda()
+    ae.cuda()
+    if len(convs) != DCN_CONVS or not all(m.fused_eval for m in convs):
+        raise AssertionError(f"{len(convs)} deformable 3x3s, fused_eval "
+                             f"{[m.fused_eval for m in convs]}")
+    engine = ScoringEngine(model, ScoringConfig(uncertainty="THC+WPU"),
+                           ae_model=ae, chunk=BATCH)
+    engine.score(*video.args)             # K4 built and every shape met
+    kept = []
+
+    def keep(m, args):
+        if args[0].shape[0] == BATCH:
+            kept.append((m, args[0], args[1]))
+    hooks = [m.register_forward_pre_hook(keep) for m in convs]
+    reset_launch_counts()
+    res = engine.score(*video.args)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for h in hooks:
+        h.remove()
+    check_outputs(res, n)
+    want = {"fused_bottleneck_chain": chunks, "fused_postprocess": 1,
+            "rot_warp_crop": 1, "deform_im2col": DCN_CONVS * chunks}
+    log(f"Fast Pose (DCN) scoring f32, chunks of {BATCH}: launches {counts} "
+        f"(want {want})")
+    if counts != want:
+        failed.append(f"launches {counts}, want {want}")
+    hm_k4 = res["heatmaps"].float()
+    del res
+
+    rows, k4_ms, eager_ms, bound_ms = [], 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for m, x, off in kept:
+            k = m.weight.shape[-1]
+            s, g = m.stride, m.deform_groups
+            same = [torch.equal(deform_im2col(x, o, k, s, 1, None, g),
+                                deform_columns(x, o, k, s, 1, None, g))
+                    for o in (off, off * 8)]
+            t_k4 = cuda_ms(lambda: deform_im2col(x, off, k, s, 1, None, g),
+                           reps=20)
+            t_eager = cuda_ms(
+                lambda: deform_columns(x, off, k, s, 1, None, g), reps=5)
+            N, C, H, W = x.shape
+            Ho, Wo = off.shape[-2:]
+            nbytes = 4 * (N * C * k * k * Ho * Wo + x.numel() + off.numel())
+            t_bound = nbytes / HBM_BYTES_PER_S * 1e3
+            rows.append({"shape": [N, C, H, W, Ho, Wo, s],
+                         "bit_for_bit": same, "ms": t_k4,
+                         "eager_ms": t_eager, "bound_ms": t_bound,
+                         "mean_abs_offset_px": off.abs().mean().item()})
+            k4_ms, eager_ms, bound_ms = (k4_ms + t_k4, eager_ms + t_eager,
+                                         bound_ms + t_bound)
+            log(f"K4 at {rows[-1]['shape']}: columns bit for bit (offsets, "
+                f"x8) {same}, {t_k4:.4f} ms (bound {t_bound:.4f}, eager "
+                f"{t_eager:.4f}), mean |offset| "
+                f"{rows[-1]['mean_abs_offset_px']:.4f} px")
+            if not all(same):
+                failed.append(f"K4 columns differ at {rows[-1]['shape']}")
+    del kept
+    torch.cuda.empty_cache()
+    if len(rows) != DCN_CONVS:
+        failed.append(f"{len(rows)} deformable 3x3s kept, want {DCN_CONVS}")
+    log(f"K4 over the {len(rows)} deformable 3x3s of a chunk of {BATCH}: "
+        f"{k4_ms:.3f} ms, bound {bound_ms:.3f} ({bound_ms / k4_ms:.1%}), "
+        f"eager route {eager_ms:.3f} ms")
+
+    halves = ScoringEngine(model, ScoringConfig(uncertainty="THC+WPU"),
+                           ae_model=ae, chunk=BATCH // 2)
+    reset_launch_counts()
+    halves.score(*video.args, keep_heatmaps=False)
+    torch.cuda.synchronize()
+    by_half = {k.__name__: k.launches for k in KERNELS}
+    n_half = -(-n // (BATCH // 2))
+    log(f"Fast Pose (DCN) scoring f32, chunks of {BATCH // 2}: launches "
+        f"{by_half}")
+    if (by_half["deform_im2col"], by_half["fused_bottleneck_chain"]) != (
+            DCN_CONVS * n_half, n_half):
+        failed.append(f"chunks of {BATCH // 2}: launches {by_half}")
+    del halves
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.score(*video.args, keep_heatmaps=False)
+        times.append(time.perf_counter() - t0)
+    rate = n / statistics.median(times)
+    for m in convs:
+        m.fused_eval = False
+    reset_launch_counts()
+    res = engine.score(*video.args)
+    torch.cuda.synchronize()
+    eager_counts = {k.__name__: k.launches for k in KERNELS}
+    hm_eager = res["heatmaps"].float()
+    del res
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.score(*video.args, keep_heatmaps=False)
+        times.append(time.perf_counter() - t0)
+    rate_eager = n / statistics.median(times)
+    gap = ((hm_k4 - hm_eager).abs().max() / hm_eager.abs().max()).item()
+    bit = torch.equal(hm_k4, hm_eager)
+    log(f"Fast Pose (DCN) scoring f32: warm {rate:.1f} samples/s through "
+        f"K4, {rate_eager:.1f} on the eager route (launches "
+        f"{eager_counts}); heatmaps K4 against eager max|err|/max "
+        f"{gap:.3e}, bit for bit {bit}")
+    if eager_counts["deform_im2col"] or gap > 1e-6:
+        failed.append(f"eager route: launches {eager_counts}, heatmaps "
+                      f"{gap:.3e} from K4's")
+    del engine, model, ae, hm_k4, hm_eager
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("Fast Pose (DCN): " + "; ".join(failed))
+    return {"launches": counts, "launches_halves": by_half,
+            "launches_eager": eager_counts, "samples_per_s": rate,
+            "samples_per_s_eager": rate_eager, "heatmaps_vs_eager": gap,
+            "heatmaps_bit_for_bit": bit, "convs": rows, "k4_ms": k4_ms,
+            "eager_ms": eager_ms, "bound_ms": bound_ms}
 
 
 def pretrain_schedule(epoch):
@@ -3220,7 +3394,8 @@ def phase_pretraining(video, card, seed, init_state=None):
             failed.append(f"K3 {counts['rot_warp_crop']} launches for "
                           f"{steps} steps and {len(passes)} passes")
         want_pass = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
-                     "rot_warp_crop": 1}
+                     "rot_warp_crop": 1,
+                     "deform_im2col": 0}
         if not passes or any(p["launches"] != want_pass for p in passes):
             failed.append(f"validate_gt launches "
                           f"{[p['launches'] for p in passes]}")
@@ -3546,7 +3721,8 @@ def phase_vis_loop(video, card, seed, al):
             label, rj, cycles, counts, calls, loop_s, n, rounds, card)
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * passes,
-                "fused_postprocess": passes, "rot_warp_crop": passes + steps}
+                "fused_postprocess": passes, "rot_warp_crop": passes + steps,
+                "deform_im2col": 0}
         want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
                       "rot_warp_crop": {"f32": passes + steps}}
         if passes != rounds + 1 or steps == 0 or counts != want \
@@ -4245,7 +4421,8 @@ def phase_dp_steps(video, card, seed):
         f, worst = _dp_scores_agree(r["scores"], ref["scores"], f"rank {i}")
         failed += f
         want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
-                "rot_warp_crop": 1}
+                "rot_warp_crop": 1,
+                "deform_im2col": 0}
         if r["pass_launches"] != want:
             failed.append(f"rank {i} pass launches {r['pass_launches']}")
     rate = n / (r0["pass_ms"] / 1e3)
@@ -4530,7 +4707,8 @@ def phase_dp_loop(video, seed, card, round0):
     for r in reports:
         p, s = r["passes"], r["steps"]
         want = {"fused_bottleneck_chain": 4 * p, "fused_postprocess": p,
-                "rot_warp_crop": p + s}
+                "rot_warp_crop": p + s,
+                "deform_im2col": 0}
         if p != rounds + 1 or s == 0 or r["launches"] != want:
             failed.append(f"rank {r['rank']}: launches {r['launches']}, "
                           f"want {want}")
@@ -4930,7 +5108,8 @@ def phase_entry_main(card, seed, vis=False, video_root=None):
         labeled |= set(query)
     passes, steps = calls.score_calls, calls.train_steps
     want_n = {"fused_bottleneck_chain": 4 * passes,
-              "fused_postprocess": passes, "rot_warp_crop": passes + steps}
+              "fused_postprocess": passes, "rot_warp_crop": passes + steps,
+              "deform_im2col": 0}
     if passes != rounds + 1 or steps == 0 or counts != want_n:
         failed.append(f"launches {counts}, want {want_n} for {passes} "
                       f"passes and {steps} steps")
@@ -5105,7 +5284,8 @@ def phase_library_tail(video, seed, card):
         del engine, res
     bit = torch.equal(passes["before the save"], passes["reloaded"])
     want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
-            "rot_warp_crop": 1}
+            "rot_warp_crop": 1,
+            "deform_im2col": 0}
     log(f"library tail reload: THC+WPU pass of {len(video.data)} with the "
         f"reloaded weights, heatmaps bit-identical to the pass before the "
         f"save {bit}; launches {counts} (want {want})")
@@ -5208,11 +5388,12 @@ def main(argv=None):
     other = {"scoring": phase_other_scoring(video, seed),
              "loops": phase_other_loops(video, card, seed),
              "study": phase_study(video, seed)}
-    phase("phase 10: the other models and the plain kernels")
+    phase("phase 10: the other models, the plain kernels, Fast Pose (DCN)")
     zoo = {"passes": phase_zoo_passes(video, seed),
            "retrain": phase_zoo_retrain(video, seed),
            "hrnet_loop": phase_hrnet_loop(video, card, seed),
-           "plain_kernels": phase_plain_kernels(seed)}
+           "plain_kernels": phase_plain_kernels(seed),
+           "fastpose_dcn": phase_fastpose_dcn(video, seed)}
     hr = zoo["hrnet_loop"]
     log("AL loop HRNet-W32 wall and split, s: " + json.dumps(
         dict(hr["phase_s"], wall=hr["loop_s"])) + "; scoring samples/s "
@@ -5295,6 +5476,10 @@ def main(argv=None):
     for label, r in zoo["retrain"].items():
         other_n[f"{label.split('-')[0].lower()}_retrain"] = r["launches"]
     other_n["al_loop_hrnet"] = zoo["hrnet_loop"]["launches"]
+    dcn = zoo["fastpose_dcn"]
+    other_n["fastpose_dcn_scoring_f32"] = dcn["launches"]
+    other_n["fastpose_dcn_scoring_f32_halves"] = dcn["launches_halves"]
+    other_n["fastpose_dcn_scoring_eager"] = dcn["launches_eager"]
     # phase 7's pre-training (jrdbpose_train) and phase 11's paths
     other_n["pretrain_jrdb_wide"] = stream["pretrain"]["launches"]
     for key in ("resident", "streaming", "eval", "handoff"):
@@ -5384,6 +5569,19 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # K4 on the Fast Pose (DCN) passes (phase 10); ms and bound over the
+    # 13 deformable 3x3s of a chunk of 512, its columns bit for bit
+    k4_launches = {k: v["deform_im2col"] for k, v in other_n.items()
+                   if v.get("deform_im2col")}
+    kernels.append({
+        "name": "deform_im2col_f32", "route": "cuda",
+        "source": "vatl4pose_tpu_torch/csrc/deform_im2col.cu",
+        "replaces": "vatl4pose_tpu/kernels/deform_conv.py",
+        "launches": sum(k4_launches.values()),
+        "launches_by_path": k4_launches, "max_abs_err": 0.0,
+        "ms": dcn["k4_ms"], "plain_ms": dcn["eager_ms"],
+        "bound_ms": dcn["bound_ms"], "bound_by": "bytes",
+        "library_ms": None})
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
                     "al_loop": al, "al_loop_speedup": al_bf16,
                     "al_loop_streaming": stream, "c1_loop": c1,

@@ -6,6 +6,9 @@ not from HRNet's normal(0.001) init, which would compare near-zeros.
 Heatmaps and embeddings agree within 1e-4 of the reference's max
 magnitude in f32 (ROADMAP A12's bound)."""
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -140,6 +143,30 @@ def test_dcn_stage_matches_flax(dcn):
     assert not hasattr(port.preact.layer3[1], "conv2_offset")
     e_hm, e_emb, _, _ = compare(jax_build_sppe(cfg, PRESET), port,
                                 "FastPose", x)
+    assert e_hm <= 1e-4 and e_emb <= 1e-4
+
+
+@pytest.mark.parametrize("fused_eval", [False, True])
+def test_fastpose_dcn_r50_matches_flax(fused_eval):
+    """The benchmark's Fast Pose (DCN) MODEL section as it stands
+    (STAGE_WITH_DCN [F, T, T, T]: 13 deformable 3x3s, the strided ones of
+    stages 3 and 4 among them); fused: stage 1's tail through K1's plain
+    version beside the deformable stages, the port's K4 route (its eager
+    columns on the CPU) against the JAX package's fused model."""
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "benchmark"
+                      / "configs" / "fastpose_dcn_r50.json").read_text())
+    cfg = cfg["MODEL"]
+    assert cfg["STAGE_WITH_DCN"] == [False, True, True, True]
+    x = RNG.normal(0, 1, (2, 64, 48, 3)).astype(np.float32)
+    port = build_sppe(cfg, PRESET, fused_eval=fused_eval, device="cpu")
+    convs = [m for m in port.modules()
+             if type(m).__name__ == "DeformConv2d"]
+    assert len(convs) == 13 and all(m.fused_eval == fused_eval
+                                    for m in convs)
+    assert port.preact.layer3[0].conv2.stride == 2
+    e_hm, e_emb, _, _ = compare(
+        jax_build_sppe(cfg, PRESET, fused_eval=fused_eval), port,
+        "FastPose", x)
     assert e_hm <= 1e-4 and e_emb <= 1e-4
 
 

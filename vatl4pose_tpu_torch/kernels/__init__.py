@@ -4,12 +4,14 @@ PyTorch versions.  Each wrapper counts its kernel launches in its
 stream's, the crops'), K1 also the launches of its f32 weights' layout
 and split (`split_launches`).
 
-The JAX package's plain (non-Pallas) kernels are eager PyTorch here,
-with no hand kernel and no launch count: deformable convolution
-(`deform_conv2d`, `DeformConv2d`), deformable PS-RoI pooling
-(`deform_roi_pool`) and RoIAlign (`roi_align`)."""
+The JAX package's plain (non-Pallas) kernels are eager PyTorch here:
+deformable convolution (`deform_conv2d`, `DeformConv2d`), whose columns
+the fused eval path takes from the hand kernel K4 (`deform_im2col`),
+deformable PS-RoI pooling (`deform_roi_pool`) and RoIAlign
+(`roi_align`), these two with no hand kernel and no launch count."""
 
-from .deform_conv import DeformConv2d, deform_conv2d
+from .deform_conv import (DeformConv2d, deform_columns, deform_conv2d,
+                          deform_im2col)
 from .deform_pool import deform_roi_pool
 from .fused_bottleneck import (bottleneck_chain_reference, fold_bn,
                                fused_bottleneck_chain, k_major_split,
@@ -18,7 +20,8 @@ from .postprocess import fused_postprocess, postprocess_reference
 from .roi_align import roi_align
 from .rot_warp import rot_warp_crop, rot_warp_crop_reference
 
-KERNELS = (fused_bottleneck_chain, fused_postprocess, rot_warp_crop)
+KERNELS = (fused_bottleneck_chain, fused_postprocess, rot_warp_crop,
+           deform_im2col)
 
 
 def reset_launch_counts():

@@ -42,6 +42,10 @@ SIGNATURES = {
     "postprocess": {
         "heatmap_postprocess_f32": [_P] * 4 + [_I] * 4 + [_P],
     },
+    "deform_im2col": {
+        "deform_im2col_f32": [_P] + [_I] * 4 + [_P] + [_I] * 4 + [_P]
+        + [_I] * 4 + [_P] + [_I] * 10 + [_P],
+    },
     "rot_warp": {
         f"{variant}_{src}_{out}": [_P] * 4 + [_I] * 6 + [_F] * 4 + [_P]
         for variant in ("rot_warp", "rot_warp_copy")

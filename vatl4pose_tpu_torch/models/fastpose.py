@@ -4,7 +4,9 @@ stages), PixelShuffle(2) (`suffle1`, the reference's spelling), DUC(512 ->
 1024), DUC(256 -> 512, or 1024 for CONV_DIM 256) and a 3x3 `conv_out` to
 K heatmaps.  With `fused_eval=True` in eval mode the SE-ResNet's stage
 tails (plain bottlenecks: SE sits on each stage's block 0) run through
-the chain kernel K1, as SimplePose's do."""
+the chain kernel K1, as SimplePose's do, and the deformable 3x3s of DCN
+stages (AlphaPose's Fast Pose (DCN): stages 2-4) take their columns from
+the deformable im2col kernel K4."""
 
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ reference state_dict loads as it is.
 `use_se=True` is the SE-ResNet of FastPose: SE only on each stage's
 downsampling block (SE_Resnet.py:199-207).  `dcn` with `stage_with_dcn`
 makes every 3x3 of the flagged stages a deformable one
-(kernels/deform_conv.py, Resnet.py:68-97) whose offsets come from a
+(kernels/deform_conv.py, Resnet.py:68-97), strided blocks included
+(FALLBACK_ON_STRIDE is not taken), whose offsets come from a
 zero-initialised `conv2_offset`.
 
 Tensors are NCHW at the module boundary and channels-last in memory.
@@ -17,8 +18,9 @@ bottleneck stage run through the CUDA chain kernel
 (kernels/fused_bottleneck.py) with eval BN folded on every forward call,
 so weights changed after construction are always seen.  The TPU package
 splits the chain by a VMEM weight budget; all four stages' tails go
-through the kernel here.  Training and `fused_eval=False` run the exact
-module graph.
+through the kernel here, bar the tails of DCN stages: their deformable
+3x3s take their columns from the deformable im2col kernel K4 instead.
+Training and `fused_eval=False` run the exact module graph.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
-                 use_se=False, dcn=None):
+                 use_se=False, dcn=None, fused_eval=False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = batchnorm(planes)
@@ -78,7 +80,7 @@ class Bottleneck(nn.Module):
             nn.init.zeros_(self.conv2_offset.weight)
             nn.init.zeros_(self.conv2_offset.bias)
             self.conv2 = DeformConv2d(planes, planes, 3, stride, 1, groups,
-                                      modulated)
+                                      modulated, fused_eval)
         self.bn2 = batchnorm(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = batchnorm(planes * 4)
@@ -136,23 +138,26 @@ class ResNet(nn.Module):
                     nn.Conv2d(inplanes, planes * block.expansion, 1, stride,
                               bias=False),
                     batchnorm(planes * block.expansion))
+            stage_dcn = dcn if self.stage_dcn[li] else None
             blocks = [self._block(block, inplanes, planes, stride,
-                                  downsample, use_se,
-                                  dcn if self.stage_dcn[li] else None)]
+                                  downsample, use_se, stage_dcn,
+                                  self.fused_eval)]
             inplanes = planes * block.expansion
             blocks += [self._block(block, inplanes, planes, 1, None, use_se,
-                                   dcn if self.stage_dcn[li] else None)
+                                   stage_dcn, self.fused_eval)
                        for _ in range(1, n)]
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
         self.to(resolve_device(device))
 
     @staticmethod
-    def _block(block, inplanes, planes, stride, downsample, use_se, dcn):
+    def _block(block, inplanes, planes, stride, downsample, use_se, dcn,
+               fused_eval):
         if block is BasicBlock:       # SE and DCN are bottleneck options
             return BasicBlock(inplanes, planes, stride, downsample)
         # SE on the stage's downsampling block only
         return Bottleneck(inplanes, planes, stride, downsample,
-                          use_se=use_se and downsample is not None, dcn=dcn)
+                          use_se=use_se and downsample is not None, dcn=dcn,
+                          fused_eval=fused_eval)
 
     def forward(self, x):
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
