@@ -88,8 +88,9 @@ Phases, each of which fails the run on error, each with its wall time:
      fastpose_posetrack21.yaml), seeded random weights, built through the
      SPPE registry: a THC+WPU scoring pass of each over phase 3's 512
      samples in f32 and in bf16 (K3 1, K2 1 and K1 4 for FastPose, 0 for
-     HRNet a pass), warm samples/s, a profile, the first 32 samples
-     against the CPU; FastPose's VL4Pose pass (K1 4) and fold_check; each
+     HRNet a pass; K5 2 for FastPose's f32 pass), warm samples/s, a
+     profile, the first 32 samples against the CPU; FastPose's VL4Pose
+     pass (K1 4, K5 2) and fold_check (K1 and K5); each
      model's 15-step retrain (K3 once a step) and FastPose's train step on
      the card against the CPU; the DUW loop on HRNet-W32 through the CLI's
      functions, checked as phase 5's (K2 and K3 once a pass, K3 once a
@@ -97,10 +98,11 @@ Phases, each of which fails the run on error, each with its wall time:
      (deformable convolution v1/v2 with gradients, RoIAlign, deformable
      PS-RoI pooling) on the card against the CPU, timed; Fast Pose (DCN)
      (AlphaPose's FastPose-R50 with 13 deformable 3x3s in stages 2-4): a
-     THC+WPU pass in chunks of 512 (K4 13, K1 1 a chunk), K4's columns at
-     those 13 inputs bit for bit the eager route's and timed beside its
-     bound, a pass in chunks of 256 (K4 26), the pass on the eager route
-     (K4 0, the same heatmaps), warm samples/s;
+     THC+WPU pass in chunks of 512 (K4 13, K1 1, K5 2 a chunk), K4's
+     columns at those 13 inputs bit for bit the eager route's and timed
+     beside its bound, a pass in chunks of 256 (K4 26, K5 4), the pass on
+     the eager route (K4 0, the same heatmaps), warm samples/s, then with
+     eager DUCs too (K5 0, heatmaps within 1e-4);
  11. the entry points before the AL loop (phase_pretraining):
      posetrack_train at full width (SimplePose-R50, 256x192, batch 180,
      the simplebaseline config's schedule cut to 40 epochs with its DPG
@@ -1620,10 +1622,10 @@ def coreset_gaps(args, kw, picks, ref):
 def fold_check(model, video, n=16, label="AL loop"):
     """A SimplePose's or FastPose's weights (phase 5: the retrained ones)
     on the first n samples' scoring crops, in eval
-    mode, four ways: through K1; through K1's plain version (the same
-    folded operands, f32 products on cuDNN); through the unfused cuDNN
-    graph in f32; and, as the exact forward, through the unfused graph in
-    f64 on the CPU.  The bars:
+    mode, four ways: through K1 (and FastPose's DUCs through K5); through
+    K1's plain version (the same folded operands, f32 products on cuDNN);
+    through the unfused cuDNN graph in f32 (eager DUCs); and, as the exact
+    forward, through the unfused graph in f64 on the CPU.  The bars:
       - the fold: K1's plain version against the unfused graph at the
         backbone's output (the chain's output) within K1's f32 bar of
         phase 2, 1e-4 of the max (a stale fold or a stale copy of the
@@ -1631,16 +1633,19 @@ def fold_check(model, video, n=16, label="AL loop"):
         heatmaps by O(1));
       - K1's precision (fault C1, repaired by promotion): K1's distance
         from the f64 forward, max|err| / max, at most twice cuDNN's
-        unfused f32 distance, at the backbone and at the heatmaps.
+        unfused f32 distance, at the backbone and at the heatmaps (there
+        with K5's, which computes as K1 does).
     K1 against the unfused graph at the heatmaps is printed beside them."""
     import torch
     import vatl4pose_tpu_torch.models.resnet as resnet_mod
     from vatl4pose_tpu_torch.kernels import bottleneck_chain_reference
+    from vatl4pose_tpu_torch.models.layers import DUC
     from vatl4pose_tpu_torch.ops import crop_batch
     d = video.data
     crops = crop_batch(video.frames_dev, d.frame_idx[:n], d.bboxes[:n],
                        INPUT_SIZE)[0].permute(0, 3, 1, 2)
     exact = copy.deepcopy(model).double().cpu().eval()
+    ducs = [m for m in model.modules() if isinstance(m, DUC)]
     kernel = resnet_mod.fused_bottleneck_chain
     was_training = model.training
     model.eval()
@@ -1652,6 +1657,8 @@ def fold_check(model, video, n=16, label="AL loop"):
                               ("unfused", model, crops),
                               ("f64", exact, crops.double().cpu())):
                 m.preact.fused_eval = key.startswith("K1")
+                for duc in ducs:
+                    duc.fused_eval = key.startswith("K1")
                 resnet_mod.fused_bottleneck_chain = \
                     bottleneck_chain_reference if key == "K1 plain" \
                     else kernel
@@ -1661,6 +1668,8 @@ def fold_check(model, video, n=16, label="AL loop"):
     finally:
         resnet_mod.fused_bottleneck_chain = kernel
         model.preact.fused_eval = True
+        for duc in ducs:
+            duc.fused_eval = True
         model.train(was_training)
 
     def rel(a, b, what):
@@ -1921,7 +1930,7 @@ def phase_al_loop(video, card, seed, speedup=False):
     passes, steps = calls.score_calls, calls.train_steps
     want = {"fused_bottleneck_chain": 4 * passes, "fused_postprocess": passes,
             "rot_warp_crop": passes + steps,
-            "deform_im2col": 0}
+            "deform_im2col": 0, "shuffle_conv3x3": 0}
     dt = "bf16" if speedup else "f32"
     want_dtype = {"fused_bottleneck_chain": {dt: 4 * passes},
                   "rot_warp_crop": {dt: passes + steps}}
@@ -2135,7 +2144,7 @@ def phase_streaming_loop(card, seed):
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * chunks * passes,
                 "fused_postprocess": chunks * passes, "rot_warp_crop": 0,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         log(f"{label}: {n} samples, {chunks} chunks of {al.engine.chunk}, "
             f"frames {al.frame_store.total_bytes / 2 ** 30:.3f} GiB over "
             f"the budget {STREAM_BUDGET_GB} GiB; launches by kernel and "
@@ -2601,7 +2610,7 @@ def phase_other_scoring(video, seed):
         counts = {k.__name__: k.launches for k in KERNELS}
         want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
                 "rot_warp_crop": 1,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         if counts != want:
             failed.append(f"{u}: launches {counts}, want {want}")
         unc = res["unc"]
@@ -2712,7 +2721,7 @@ def phase_other_loops(video, card, seed):
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * passes,
                 "fused_postprocess": passes, "rot_warp_crop": passes + steps,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
                       "rot_warp_crop": {"f32": passes + steps}}
         if passes != rounds + 1 or steps == 0 or counts != want \
@@ -2781,7 +2790,7 @@ def phase_study(video, seed):
             or not all(math.isfinite(v) for _, _, v in hist) \
             or 0 in (counts["fused_bottleneck_chain"],
                      counts["fused_postprocess"], counts["rot_warp_crop"]) \
-            or counts["deform_im2col"]:
+            or counts["deform_im2col"] or counts["shuffle_conv3x3"]:
         raise AssertionError(f"study: {hist}, launches {counts}")
     return {"wall_s": wall, "trials": [[p, v] for _, p, v in hist],
             "best_value": study.best_value, "best_params": study.best_params,
@@ -2816,14 +2825,15 @@ def phase_zoo_passes(video, seed):
     """HRNet-W32 and FastPose-R50 (phase 3's video, 512 samples, 256x192,
     seeded random weights): one THC+WPU scoring pass in f32 and one in
     bf16, counters from 0 before each (K3 1, K2 1 and K1 4 for FastPose,
-    0 for HRNet, whose builder ignores fused_eval); warm samples/s
+    0 for HRNet, whose builder ignores fused_eval; K5 2 a chunk for
+    FastPose's f32 pass, one a DUC, 0 in bf16); warm samples/s
     (median of 3) and a profile of one warm pass, which must run no
     aten::einsum; the first 32 samples' heatmaps and embeddings against
     the same port on the CPU (phase 3's bounds).  FastPose also: one
     VL4Pose pass (one backbone pass a chunk through K1 feeds the head, the
-    AuxNet of the seeded default init and the embedding: K1 4, K2 1, K3 1)
-    and fold_check on its f32 pass (K1 at most twice cuDNN's f32 distance
-    from f64)."""
+    AuxNet of the seeded default init and the embedding: K1 4, K2 1, K3 1,
+    K5 2) and fold_check on its f32 pass (K1 and K5 at most twice cuDNN's
+    f32 distance from f64)."""
     import numpy as np
     import torch
     from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
@@ -2848,15 +2858,19 @@ def phase_zoo_passes(video, seed):
         model_cpu, ae_cpu = copy.deepcopy(model), copy.deepcopy(ae)
         model.cuda()
         ae.cuda()
+        # K5 (FastPose's two DUCs) 2 a chunk of f32, none in bf16
+        k5 = 2 * -(-n // BATCH) if k1 else 0
         want = {"fused_bottleneck_chain": k1, "fused_postprocess": 1,
                 "rot_warp_crop": 1,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": k5}
         r, hms = {}, {}
         for mode in ("f32", "bf16"):
             engine = ScoringEngine(model, ScoringConfig(
                 uncertainty="THC+WPU", bf16=mode == "bf16"), ae_model=ae,
                 chunk=BATCH)
-            res, counts = one_pass(engine, f"{label} scoring {mode}", want)
+            res, counts = one_pass(
+                engine, f"{label} scoring {mode}",
+                dict(want, shuffle_conv3x3=k5 if mode == "f32" else 0))
             check_outputs(res, n)
             times = []
             for _ in range(3):
@@ -2945,7 +2959,7 @@ def phase_zoo_retrain(video, seed):
             f"and acc by epoch {curve}, launches {counts}")
         want = {"fused_bottleneck_chain": 0, "fused_postprocess": 0,
                 "rot_warp_crop": steps,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         if counts != want or not np.isfinite(curve).all():
             raise AssertionError(f"{label} retrain: launches {counts}, want "
                                  f"{want}; curve {curve}")
@@ -2984,7 +2998,7 @@ def phase_hrnet_loop(video, card, seed):
     passes, steps = calls.score_calls, calls.train_steps
     want = {"fused_bottleneck_chain": 0, "fused_postprocess": passes,
             "rot_warp_crop": passes + steps,
-            "deform_im2col": 0}
+            "deform_im2col": 0, "shuffle_conv3x3": 0}
     want_dtype = {"fused_bottleneck_chain": {},
                   "rot_warp_crop": {"f32": passes + steps}}
     if passes != rounds + 1 or steps == 0 or counts != want \
@@ -3089,21 +3103,24 @@ def phase_fastpose_dcn(video, seed):
     """Fast Pose (DCN) (phase 3's video, 512 samples, 256x192, seeded
     random weights, the deformable 3x3s' kernels He-scaled too): one
     THC+WPU scoring pass in f32 in chunks of 512 with the counters reset
-    just before it (K4 13 a chunk, K1 1 a chunk on stage 1's tail, K2 1,
-    K3 1), whose 13 deformable 3x3s' inputs are kept; at each of those 13
-    shapes K4's columns against the eager route's (`deform_columns`) bit
-    for bit, at the model's own offsets and at 8 times them (taps off the
-    maps' edges), K4's time (CUDA events) beside the eager route's and
-    K4's bound (bytes: the columns written, the input and the offsets
-    read once, over the HBM rate); the pass in chunks of 256 (K4 26, K1
-    2); the pass with the deformable 3x3s on the eager route (K4 0), whose
-    heatmaps must equal K4's within 1e-6 of their max magnitude (the same
-    columns, the same product); warm samples/s (median of 3)."""
+    just before it (K4 13 a chunk, K1 1 a chunk on stage 1's tail, K5 2
+    a chunk, K2 1, K3 1), whose 13 deformable 3x3s' inputs are kept; at
+    each of those 13 shapes K4's columns against the eager route's
+    (`deform_columns`) bit for bit, at the model's own offsets and at 8
+    times them (taps off the maps' edges), K4's time (CUDA events) beside
+    the eager route's and K4's bound (bytes: the columns written, the
+    input and the offsets read once, over the HBM rate); the pass in
+    chunks of 256 (K4 26, K1
+    2, K5 4); the pass with the deformable 3x3s on the eager route (K4 0),
+    whose heatmaps must equal K4's within 1e-6 of their max magnitude (the
+    same columns, the same product), warm samples/s (median of 3); then
+    with the DUCs on the eager route too (K5 0), within 1e-4 of K5's."""
     import torch
     from vatl4pose_tpu_torch.al import ScoringConfig, ScoringEngine
     from vatl4pose_tpu_torch.kernels import (KERNELS, DeformConv2d,
                                              deform_columns, deform_im2col,
                                              reset_launch_counts)
+    from vatl4pose_tpu_torch.models.layers import DUC
     n = len(video.args[1])
     chunks = -(-n // BATCH)
     failed = []
@@ -3136,7 +3153,8 @@ def phase_fastpose_dcn(video, seed):
         h.remove()
     check_outputs(res, n)
     want = {"fused_bottleneck_chain": chunks, "fused_postprocess": 1,
-            "rot_warp_crop": 1, "deform_im2col": DCN_CONVS * chunks}
+            "rot_warp_crop": 1, "deform_im2col": DCN_CONVS * chunks,
+            "shuffle_conv3x3": 2 * chunks}
     log(f"Fast Pose (DCN) scoring f32, chunks of {BATCH}: launches {counts} "
         f"(want {want})")
     if counts != want:
@@ -3189,8 +3207,9 @@ def phase_fastpose_dcn(video, seed):
     n_half = -(-n // (BATCH // 2))
     log(f"Fast Pose (DCN) scoring f32, chunks of {BATCH // 2}: launches "
         f"{by_half}")
-    if (by_half["deform_im2col"], by_half["fused_bottleneck_chain"]) != (
-            DCN_CONVS * n_half, n_half):
+    if (by_half["deform_im2col"], by_half["fused_bottleneck_chain"],
+            by_half["shuffle_conv3x3"]) != (DCN_CONVS * n_half, n_half,
+                                            2 * n_half):
         failed.append(f"chunks of {BATCH // 2}: launches {by_half}")
     del halves
 
@@ -3220,9 +3239,30 @@ def phase_fastpose_dcn(video, seed):
         f"K4, {rate_eager:.1f} on the eager route (launches "
         f"{eager_counts}); heatmaps K4 against eager max|err|/max "
         f"{gap:.3e}, bit for bit {bit}")
-    if eager_counts["deform_im2col"] or gap > 1e-6:
+    if eager_counts["deform_im2col"] or gap > 1e-6 \
+            or eager_counts["shuffle_conv3x3"] != 2 * chunks:
         failed.append(f"eager route: launches {eager_counts}, heatmaps "
                       f"{gap:.3e} from K4's")
+    # the DUCs on the eager route too: K5 0, the heatmaps within f32
+    # summation order of K5's (1e-4 of their max: a wrong column order or
+    # store moves them by O(1))
+    ducs = [m for m in model.modules() if isinstance(m, DUC)]
+    for m in ducs:
+        m.fused_eval = False
+    reset_launch_counts()
+    res = engine.score(*video.args)
+    torch.cuda.synchronize()
+    eager_duc_counts = {k.__name__: k.launches for k in KERNELS}
+    gap_duc = ((hm_eager - res["heatmaps"].float()).abs().max()
+               / hm_eager.abs().max()).item()
+    del res
+    log(f"Fast Pose (DCN) scoring f32, eager DUCs too: launches "
+        f"{eager_duc_counts}; heatmaps against K5's max|err|/max "
+        f"{gap_duc:.3e}")
+    if eager_duc_counts["shuffle_conv3x3"] or len(ducs) != 2 \
+            or gap_duc > 1e-4:
+        failed.append(f"eager DUCs: launches {eager_duc_counts}, heatmaps "
+                      f"{gap_duc:.3e} from K5's")
     del engine, model, ae, hm_k4, hm_eager
     torch.cuda.empty_cache()
     if failed:
@@ -3231,7 +3271,9 @@ def phase_fastpose_dcn(video, seed):
             "launches_eager": eager_counts, "samples_per_s": rate,
             "samples_per_s_eager": rate_eager, "heatmaps_vs_eager": gap,
             "heatmaps_bit_for_bit": bit, "convs": rows, "k4_ms": k4_ms,
-            "eager_ms": eager_ms, "bound_ms": bound_ms}
+            "eager_ms": eager_ms, "bound_ms": bound_ms,
+            "launches_eager_duc": eager_duc_counts,
+            "heatmaps_k5_vs_eager_duc": gap_duc}
 
 
 def pretrain_schedule(epoch):
@@ -3395,7 +3437,7 @@ def phase_pretraining(video, card, seed, init_state=None):
                           f"{steps} steps and {len(passes)} passes")
         want_pass = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
                      "rot_warp_crop": 1,
-                     "deform_im2col": 0}
+                     "deform_im2col": 0, "shuffle_conv3x3": 0}
         if not passes or any(p["launches"] != want_pass for p in passes):
             failed.append(f"validate_gt launches "
                           f"{[p['launches'] for p in passes]}")
@@ -3722,7 +3764,7 @@ def phase_vis_loop(video, card, seed, al):
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * passes,
                 "fused_postprocess": passes, "rot_warp_crop": passes + steps,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
                       "rot_warp_crop": {"f32": passes + steps}}
         if passes != rounds + 1 or steps == 0 or counts != want \
@@ -4422,7 +4464,7 @@ def phase_dp_steps(video, card, seed):
         failed += f
         want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
                 "rot_warp_crop": 1,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         if r["pass_launches"] != want:
             failed.append(f"rank {i} pass launches {r['pass_launches']}")
     rate = n / (r0["pass_ms"] / 1e3)
@@ -4708,7 +4750,7 @@ def phase_dp_loop(video, seed, card, round0):
         p, s = r["passes"], r["steps"]
         want = {"fused_bottleneck_chain": 4 * p, "fused_postprocess": p,
                 "rot_warp_crop": p + s,
-                "deform_im2col": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0}
         if p != rounds + 1 or s == 0 or r["launches"] != want:
             failed.append(f"rank {r['rank']}: launches {r['launches']}, "
                           f"want {want}")
@@ -5109,7 +5151,7 @@ def phase_entry_main(card, seed, vis=False, video_root=None):
     passes, steps = calls.score_calls, calls.train_steps
     want_n = {"fused_bottleneck_chain": 4 * passes,
               "fused_postprocess": passes, "rot_warp_crop": passes + steps,
-              "deform_im2col": 0}
+              "deform_im2col": 0, "shuffle_conv3x3": 0}
     if passes != rounds + 1 or steps == 0 or counts != want_n:
         failed.append(f"launches {counts}, want {want_n} for {passes} "
                       f"passes and {steps} steps")
@@ -5285,7 +5327,7 @@ def phase_library_tail(video, seed, card):
     bit = torch.equal(passes["before the save"], passes["reloaded"])
     want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
             "rot_warp_crop": 1,
-            "deform_im2col": 0}
+            "deform_im2col": 0, "shuffle_conv3x3": 0}
     log(f"library tail reload: THC+WPU pass of {len(video.data)} with the "
         f"reloaded weights, heatmaps bit-identical to the pass before the "
         f"save {bit}; launches {counts} (want {want})")
@@ -5480,6 +5522,7 @@ def main(argv=None):
     other_n["fastpose_dcn_scoring_f32"] = dcn["launches"]
     other_n["fastpose_dcn_scoring_f32_halves"] = dcn["launches_halves"]
     other_n["fastpose_dcn_scoring_eager"] = dcn["launches_eager"]
+    other_n["fastpose_dcn_scoring_eager_duc"] = dcn["launches_eager_duc"]
     # phase 7's pre-training (jrdbpose_train) and phase 11's paths
     other_n["pretrain_jrdb_wide"] = stream["pretrain"]["launches"]
     for key in ("resident", "streaming", "eval", "handoff"):

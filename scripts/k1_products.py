@@ -7,7 +7,10 @@ its bound.
 
 --base names the kernel source to hold the shipped one against (default
 scripts/k1_study_base.cu; a `git archive`'s csrc/fused_bottleneck.cu of an
-older tree whose C entries have the same signature does as well).
+older tree does as well: one with the frozen source's C entries is
+launched as scripts/k1_base.py launches it, one whose f32 weights come
+split by the wrapper (it has k_major_split_f32) through the shipped
+wrapper with its library in place of the shipped one).
 
 1. Equal bit for bit, f32 and bf16: the four SimplePose-R50 tails at N=512
    on chip_smoke.py phase 2's random operands and at N=120, the shapes of
@@ -98,6 +101,22 @@ def profile_ms(fn, calls=6):
             for k in keys}
 
 
+def split_entries(path):
+    """The library at `path` bound with the shipped C signatures where it
+    splits the f32 weights itself (it has k_major_split_f32), else
+    None."""
+    import ctypes
+    from vatl4pose_tpu_torch.kernels import _build
+    lib = ctypes.CDLL(str(path))
+    if not hasattr(lib, "k_major_split_f32"):
+        return None
+    for fn, argtypes in _build.SIGNATURES["fused_bottleneck"].items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def bitwise_equal(a, b):
     import torch
     view = torch.int32 if a.dtype == torch.float32 else torch.int16
@@ -137,7 +156,8 @@ def main():
     if proc.returncode != 0:
         print(base_ptxas[-4000:], file=sys.stderr)
         return 1
-    base = k1_base.bind(out_dir / "libbase.so")
+    wrapped = split_entries(out_dir / "libbase.so")
+    base = None if wrapped else k1_base.bind(out_dir / "libbase.so")
     for who, text in (("shipped", _build.ptxas_info["fused_bottleneck"]),
                       ("base", base_ptxas)):
         for line in text.splitlines():
@@ -145,7 +165,14 @@ def main():
                 cs.log(f"  ptxas {who}: {line.strip()}")
 
     def run_base(x, *ws):
-        return k1_base.launch(base, x, *ws)
+        if base is not None:
+            return k1_base.launch(base, x, *ws)
+        shipped = _build.load("fused_bottleneck")
+        _build._libs["fused_bottleneck"] = wrapped
+        try:
+            return fused_bottleneck_chain(x, *ws)
+        finally:
+            _build._libs["fused_bottleneck"] = shipped
 
     res = {"card": card, "base": args.base, "equal": {}, "chain_ms": {},
            "products_ms": {}, "bounds_ms": {}}

@@ -12,8 +12,8 @@ on one stage; and which route each kind of forward takes.
 Card (marker `cuda`, skipped without one): K4's columns equal the eager
 route's bit for bit, at the six shapes of the configuration's 13
 deformable 3x3s at a chunk of 512 and at edge shapes; a fused eval pass of
-a chunk launches K4 13 times and never the eager route; a train-mode
-forward takes the eager route.  The file imports neither JAX nor the JAX
+a chunk launches K4 13 times and never the eager route, and K5 twice and
+never the eager DUC; a train-mode forward takes the eager routes.  The file imports neither JAX nor the JAX
 package, so on a machine with only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fastpose_dcn.py -m cuda
@@ -30,9 +30,11 @@ import torch
 from benchmark.reference.models import build_estimator
 from benchmark.weights import estimator_weights
 from vatl4pose_tpu_torch.kernels import (deform_columns, deform_conv,
-                                         deform_im2col, reset_launch_counts)
+                                         deform_im2col, reset_launch_counts,
+                                         shuffle_conv3x3,
+                                         shuffle_conv3x3_reference)
 from vatl4pose_tpu_torch.kernels.deform_conv import DeformConv2d
-from vatl4pose_tpu_torch.models import build_sppe
+from vatl4pose_tpu_torch.models import build_sppe, layers
 
 CFG = json.loads((Path(__file__).resolve().parent.parent / "benchmark"
                   / "configs" / "fastpose_dcn_r50.json").read_text())
@@ -146,22 +148,30 @@ def test_offsets_move_the_samples(few_threads):
 
 def test_routes(few_threads, monkeypatch):
     """K4's route (`deform_im2col`) in eval with fused_eval and no
-    gradient, once a deformable 3x3 (13 a forward); the eager columns in
-    train mode, with fused_eval off, under autograd and for bf16."""
-    calls = []
+    gradient, once a deformable 3x3 (13 a forward), and K5's
+    (`shuffle_conv3x3`), once a DUC (2 a forward); the eager columns and
+    the eager DUC in train mode, with fused_eval off, under autograd and
+    for bf16."""
+    calls, duc_calls = [], []
 
     def k4(*a, **kw):
         calls.append(1)
         return deform_columns(*a, **kw)
 
+    def k5(*a, **kw):
+        duc_calls.append(1)
+        return shuffle_conv3x3_reference(*a, **kw)
+
     monkeypatch.setattr(deform_conv, "deform_im2col", k4)
+    monkeypatch.setattr(layers, "shuffle_conv3x3", k5)
     cfg = config()
     port, _ = models(cfg, "cpu")
     x = crops(1, cfg, "cpu")
     with torch.no_grad():
         port.eval()(x)
-    assert len(calls) == 13
+    assert len(calls) == 13 and len(duc_calls) == 2
     calls.clear()
+    duc_calls.clear()
     port.train()(x)
     port.eval()(x)                    # autograd: weights need a gradient
     with torch.no_grad():
@@ -170,7 +180,10 @@ def test_routes(few_threads, monkeypatch):
         conv = port.preact.layer3[1].conv2.to(torch.bfloat16).eval()
         conv(torch.ones((1, 256, 6, 4), dtype=torch.bfloat16),
              torch.zeros((1, 18, 6, 4), dtype=torch.bfloat16))
+        duc = port.duc2.to(torch.bfloat16).eval()
+        duc(torch.ones((1, 256, 6, 4), dtype=torch.bfloat16))
     assert conv.fused_eval and calls == []
+    assert duc.fused_eval and duc_calls == []
 
 
 def test_cpu_columns_are_the_eager_route():
@@ -298,6 +311,30 @@ def test_fused_eval_chunk_launches_k4_and_never_the_eager_route(
 
 
 @pytest.mark.cuda
+def test_fused_eval_chunk_launches_k5_twice_and_never_the_eager_duc(
+        cuda, monkeypatch):
+    """A fused eval pass of a chunk of 512 runs each DUC as one K5 launch
+    (and one launch of its weights' split): no DUC's conv, BN or shuffle
+    module runs."""
+    port = chunk_model(cuda)
+    x = crops(512, config(small=False), cuda)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the fused eval pass took the eager DUC")
+
+    for duc in (port.duc1, port.duc2):
+        for m in (duc.conv, duc.bn, duc.relu, duc.pixel_shuffle):
+            monkeypatch.setattr(m, "forward", refuse)
+    reset_launch_counts()
+    with torch.no_grad():
+        hm = port(x)
+        torch.cuda.synchronize()
+    assert shuffle_conv3x3.launches == 2
+    assert shuffle_conv3x3.split_launches == 2
+    assert hm.shape == (512, 17, 64, 48) and torch.isfinite(hm).all()
+
+
+@pytest.mark.cuda
 def test_train_forward_takes_the_eager_route(cuda):
     port = chunk_model(cuda).train()
     x = crops(8, config(small=False), cuda)
@@ -305,4 +342,5 @@ def test_train_forward_takes_the_eager_route(cuda):
     port(x).sum().backward()
     torch.cuda.synchronize()
     assert deform_im2col.launches == 0
+    assert shuffle_conv3x3.launches == 0
     assert port.preact.layer2[0].conv2.weight.grad is not None

@@ -74,6 +74,27 @@
 // Keeping the stream on chip across blocks, as the TPU kernel did in VMEM,
 // is the next step.
 //
+// K5 (shuffle_conv3x3_kernel): FastPose's DUC, relu(conv3x3(x, w) * s + b)
+// with eval BN folded, stored through PixelShuffle(2), x (N, H, W, Cin) ->
+// out (N, 2H, 2W, Cout / 4), f32.  It replaces no TPU kernel: the JAX
+// package leaves DUC to XLA.  Bound: 2*N*H*W*9*Cin*Cout FLOPs in three
+// TF32 products at 495 TFLOP/s (5.6 ms a DUC at a chunk of 512 of FastPose
+// at 256x192); its bytes (x read, out written once) are 0.2 ms.  Design:
+// K1's f32 3x3 product as it is (the same CTA, gather producer, TMA for
+// B_hi and B_lo, promotion a k-step, each part's last bit set), at BN =
+// 128, with Cout apart from Cin, and two changes:
+//   - the shuffle is folded into B's row order: shuffle_split_kernel lays
+//     out column q * Cout/4 + c with channel 4c + q (and s, b with it), so
+//     a tile's 128 columns are one sub-pixel (i, j) = (q / 2, q % 2) of
+//     contiguous channels, and the epilogue stores 16-byte runs at
+//     out[n, 2h + i, 2w + j, c];
+//   - TAP_SUMS: each tap's promoted parts are summed apart and added to
+//     acc at the tap's end.  One running f32 sum over 9 * Cin / 8
+//     promotions sat 2.9x further from an f64 forward than cuDNN's FFT
+//     route at Cin 256 (7.3e-7 against 2.5e-7 of the max, N = 512); two
+//     short sums read 2.1e-7.  Its 64 more floats a thread spill (about a
+//     sixth more time than one sum); ptxas ignored setmaxnreg here.
+//
 // Weight layouts (K-major): w1t (nb, P, C), w2t (nb, P, 9, P) with
 // k = tap*P + ci, w3t (nb, C, P) in the stream dtype, laid out by the
 // wrapper in bf16 and, with their lo halves, by k_major_split_f32 in f32;
@@ -424,6 +445,28 @@ __device__ __forceinline__ void chunk(float (&p)[32], float (&q)[32],
   fence_operands(acc);
 }
 
+// `first` where FIRST, else `second`: a reference chosen at compile time
+template <bool FIRST, typename A>
+__device__ __forceinline__ A& pick(A& first, A& second) {
+  if constexpr (FIRST)
+    return first;
+  else
+    return second;
+}
+
+// acc += tap, tap = 0: a tap's sum of promoted parts added to the total
+template <int BN>
+__device__ __forceinline__ void add_tap(float (&acc)[BN / 2],
+                                        float (&tap)[BN / 2]) {
+  fence_operands(tap);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    acc[i] = __fadd_rn(acc[i], tap[i]);
+    tap[i] = 0.f;
+  }
+  fence_operands(acc);
+}
+
 // out[0:4] = relu(y + res), 16 bytes of f32
 template <bool RESIDUAL>
 __device__ __forceinline__ void store_out(const float* y, const float* res,
@@ -473,14 +516,21 @@ __device__ __forceinline__ void store_out(const float* y,
 // k = tap * Cin + ci; b_map is 4-D (Cin, 9, Cout, nb).
 // B is block `blk` of b_map, K-major; in f32 b_map holds its hi halves and
 // b_lo_map its lo halves (bf16 reads no b_lo_map).  `res` may alias `out`.
-template <typename T, int BN, bool CONV3, bool RESIDUAL>
-__global__ void __launch_bounds__(THREADS, 1)
-    conv_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
-                     const __grid_constant__ CUtensorMap b_map,
-                     const __grid_constant__ CUtensorMap b_lo_map,
-                     const T* __restrict__ in, const float* __restrict__ scale,
-                     const float* __restrict__ bias, const T* res, T* out,
-                     int M, int H, int W, int Cin, int Cout, int blk) {
+// SHUFFLE: column n = q * Cout / 4 + c of pixel (img, h, w) is stored at
+// out[img, 2h + q / 2, 2w + q % 2, c] of an (N, 2H, 2W, Cout / 4) stream
+// (PixelShuffle(2) of a column order that shuffle_split_kernel makes).
+// TAP_SUMS (f32): the promoted parts of each tap (kblocks stages) are
+// summed apart and each tap's sum is added to acc at its end, two short
+// f32 sums in place of one over all 9 * Cin / 8 k-steps (its 64 floats
+// are more than a thread of 384 has: ptxas spills about 56 of them).
+// The body of conv_gemm_kernel (K1) and shuffle_conv3x3_kernel (K5).
+template <typename T, int BN, bool CONV3, bool RESIDUAL, bool SHUFFLE,
+          bool TAP_SUMS>
+__device__ __forceinline__ void conv_gemm(
+    const CUtensorMap& a_map, const CUtensorMap& b_map,
+    const CUtensorMap& b_lo_map, const T* __restrict__ in,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const T* res, T* out, int M, int H, int W, int Cin, int Cout, int blk) {
   using TL = Tile<T, BN>;
   constexpr int S = TL::STAGES;
   constexpr int KB = TL::KB;
@@ -615,9 +665,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the descriptor's 16-byte units
     constexpr uint64_t H1 = NH == 2 ? 64 * ROW_BYTES / 16 : 0;
     float part0[32], part1[32];
+    // where the parts are promoted: acc, or with TAP_SUMS the tap's sum
+    float tap[BN / 2];
+    float(&sum)[BN / 2] = pick<TAP_SUMS>(tap, acc);
+    if constexpr (TAP_SUMS) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) tap[i] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      acc[LAST + i] = __int_as_float(1);
+      sum[LAST + i] = __int_as_float(1);
       part1[i] = -0.f;
     }
     for (int kb = 0; kb < nk; ++kb) {
@@ -639,11 +696,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll 1
       for (int c = 0; c < K_STEPS * NH / 2; ++c) {
         const int k0 = 2 * (2 * c / NH), k1 = 2 * ((2 * c + 1) / NH);
-        chunk<BN, LAST>(part0, part1, acc, da + k0, db + k0, dal + k0,
+        chunk<BN, LAST>(part0, part1, sum, da + k0, db + k0, dal + k0,
                         dbl + k0);
         // the previous stage's last chunk has landed: release it
-        if (c == 0 && kb > 0) mbar_arrive(&empty[(kb - 1) % S]);
-        chunk<BN, 0>(part1, part0, acc, da + k1, db + k1 + H1, dal + k1,
+        if (c == 0 && kb > 0) {
+          mbar_arrive(&empty[(kb - 1) % S]);
+          // and a tap ended with that stage: its sum is complete
+          if constexpr (TAP_SUMS) {
+            if (kb % kblocks == 0) add_tap<BN>(acc, tap);
+          }
+        }
+        chunk<BN, 0>(part1, part0, sum, da + k1, db + k1 + H1, dal + k1,
                      dbl + k1 + H1);
       }
     }
@@ -651,7 +714,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     fence_operands(part1);
 #pragma unroll
     for (int i = 0; i < 32; ++i)
-      acc[LAST + i] = __fadd_rn(acc[LAST + i], debias(part1[i]));
+      sum[LAST + i] = __fadd_rn(sum[LAST + i], debias(part1[i]));
+    if constexpr (TAP_SUMS) add_tap<BN>(acc, tap);
     mbar_arrive(&empty[(nk - 1) % S]);
   } else {
     for (int kb = 0; kb < nk; ++kb) {
@@ -702,9 +766,46 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int c = (i % CPR) * VEC;
     const int m = m0 + r, n = n0 + c;
     if (m >= M || n >= Cout) continue;
-    const int64_t o = (int64_t)m * Cout + n;
+    int64_t o;
+    if constexpr (SHUFFLE) {
+      const int C4 = Cout / 4, q = n / C4;
+      const int img = m / (H * W), hw = m - img * (H * W);
+      const int h = hw / W, w = hw - h * W;
+      o = (((int64_t)img * 2 * H + 2 * h + (q >> 1)) * 2 * W + 2 * w +
+           (q & 1)) * C4 + (n - q * C4);
+    } else {
+      o = (int64_t)m * Cout + n;
+    }
     store_out<RESIDUAL>(&stg[r * LD + c], res + o, out + o);
   }
+}
+
+template <typename T, int BN, bool CONV3, bool RESIDUAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap b_map,
+                     const __grid_constant__ CUtensorMap b_lo_map,
+                     const T* __restrict__ in, const float* __restrict__ scale,
+                     const float* __restrict__ bias, const T* res, T* out,
+                     int M, int H, int W, int Cin, int Cout, int blk) {
+  conv_gemm<T, BN, CONV3, RESIDUAL, false, false>(
+      a_map, b_map, b_lo_map, in, scale, bias, res, out, M, H, W, Cin, Cout,
+      blk);
+}
+
+// K5: relu(conv3x3(x, w) * s + b) of an (N, H, W, Cin) f32 stream, stored
+// through PixelShuffle(2); B (Cout, 9, Cin) and s, b in the column order
+// of shuffle_split_kernel
+__global__ void __launch_bounds__(THREADS, 1)
+    shuffle_conv3x3_kernel(const __grid_constant__ CUtensorMap b_map,
+                           const __grid_constant__ CUtensorMap b_lo_map,
+                           const float* __restrict__ in,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ bias, float* out, int M,
+                           int H, int W, int Cin, int Cout) {
+  conv_gemm<float, 128, true, false, true, true>(
+      b_map, b_map, b_lo_map, in, scale, bias, nullptr, out, M, H, W, Cin,
+      Cout, 0);
 }
 
 // One batched transpose of the f32 weights: `batch` matrices of rows x
@@ -760,6 +861,36 @@ __global__ void __launch_bounds__(256)
       t.lo[base + c * ld + r] = lo;
     }
   }
+}
+
+// K5's B operand and epilogue constants in one launch, a block an output
+// column n: w (Cout, Cin, 3, 3) as torch keeps it -> (Cout, 9, Cin),
+// k = tap * Cin + ci, split into hi and lo, and s, b, where column
+// n = q * C4 + c (C4 = Cout / 4) takes channel 4c + q, PixelShuffle(2)'s
+// sub-pixel q = 2i + j of channel c: a tile's columns are one sub-pixel
+// of contiguous channels, so the epilogue stores 16-byte runs.  The
+// channel's 9 * Cin weights are read into shared memory along torch's
+// rows and written along K.
+__global__ void __launch_bounds__(256)
+    shuffle_split_kernel(const float* __restrict__ w,
+                         const float* __restrict__ s,
+                         const float* __restrict__ b, float* hi, float* lo,
+                         float* sp, float* bp, int Cin, int Cout) {
+  extern __shared__ float row[];
+  const int n = blockIdx.x, C4 = Cout / 4;
+  const int oc = 4 * (n % C4) + n / C4;
+  const int K = 9 * Cin;
+  const float* src = w + (int64_t)oc * K;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) row[i] = src[i];
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const int tap = k / Cin, ci = k - tap * Cin;
+    float h, l;
+    split(row[ci * 9 + tap], h, l);
+    hi[(int64_t)n * K + k] = h;
+    lo[(int64_t)n * K + k] = l;
+  }
+  if (threadIdx.x == 0) sp[n] = s[oc], bp[n] = b[oc];
 }
 
 // --------------------------------------------------------------- host ----
@@ -950,4 +1081,50 @@ extern "C" int fused_bottleneck_chain_bf16(
       (const float*)s2, (const float*)b2, (const T*)w3t, nullptr,
       (const float*)s3, (const float*)b3, N, H, W, C, P, nb,
       (cudaStream_t)stream);
+}
+
+// K5's operands as the wrapper takes them: w (Cout, Cin, 3, 3), s and b
+// (Cout); out: w_hi, w_lo (Cout, 9, Cin) and s, b in the kernel's column
+// order
+extern "C" int shuffle_split_f32(const void* w, const void* s, const void* b,
+                                 void* whi, void* wlo, void* sp, void* bp,
+                                 int Cin, int Cout, void* stream) {
+  const int smem = 9 * Cin * (int)sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(shuffle_split_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  shuffle_split_kernel<<<Cout, 256, smem, (cudaStream_t)stream>>>(
+      (const float*)w, (const float*)s, (const float*)b, (float*)whi,
+      (float*)wlo, (float*)sp, (float*)bp, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+// K5: x (N, H, W, Cin) -> out (N, 2H, 2W, Cout / 4), both f32 NHWC; whi,
+// wlo, sp, bp as shuffle_split_f32 makes them
+extern "C" int shuffle_conv3x3_f32(const void* x, const void* whi,
+                                   const void* wlo, const void* sp,
+                                   const void* bp, void* out, int N, int H,
+                                   int W, int Cin, int Cout, void* stream) {
+  const cuuint64_t e = sizeof(float);
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, 9, (cuuint64_t)Cout, 1};
+  const cuuint64_t strides[3] = {Cin * e, 9 * Cin * e,
+                                 (cuuint64_t)9 * Cin * Cout * e};
+  const cuuint32_t box[4] = {ROW_BYTES / sizeof(float), 1, 128, 1};
+  CUtensorMap hi, lo;
+  if (!encode<float>(&hi, whi, 4, dims, strides, box) ||
+      !encode<float>(&lo, wlo, 4, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Tile<float, 128>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(shuffle_conv3x3_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int M = N * H * W;
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((Cout + 127) / 128);
+  shuffle_conv3x3_kernel<<<(unsigned)tiles, THREADS, smem,
+                           (cudaStream_t)stream>>>(
+      hi, lo, (const float*)x, (const float*)sp, (const float*)bp,
+      (float*)out, M, H, W, Cin, Cout);
+  return (int)cudaGetLastError();
 }

@@ -38,6 +38,8 @@ SIGNATURES = {
         "fused_bottleneck_chain_f32": [_P] * 16 + [_I] * 6 + [_P],
         "fused_bottleneck_chain_bf16": [_P] * 13 + [_I] * 6 + [_P],
         "k_major_split_f32": [_P] * 9 + [_I] * 3 + [_P],
+        "shuffle_split_f32": [_P] * 7 + [_I] * 2 + [_P],
+        "shuffle_conv3x3_f32": [_P] * 6 + [_I] * 5 + [_P],
     },
     "postprocess": {
         "heatmap_postprocess_f32": [_P] * 4 + [_I] * 4 + [_P],

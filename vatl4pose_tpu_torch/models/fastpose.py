@@ -4,9 +4,11 @@ stages), PixelShuffle(2) (`suffle1`, the reference's spelling), DUC(512 ->
 1024), DUC(256 -> 512, or 1024 for CONV_DIM 256) and a 3x3 `conv_out` to
 K heatmaps.  With `fused_eval=True` in eval mode the SE-ResNet's stage
 tails (plain bottlenecks: SE sits on each stage's block 0) run through
-the chain kernel K1, as SimplePose's do, and the deformable 3x3s of DCN
+the chain kernel K1, as SimplePose's do, the deformable 3x3s of DCN
 stages (AlphaPose's Fast Pose (DCN): stages 2-4) take their columns from
-the deformable im2col kernel K4."""
+the deformable im2col kernel K4, and each DUC is one launch of K5 (3x3
+conv, folded BN, ReLU and the shuffle), the first reading `suffle1`'s
+output made channels-last, the second the first's NHWC output."""
 
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ class FastPose(nn.Module):
                              dcn=dcn, stage_with_dcn=stage_with_dcn,
                              device="cpu")
         self.suffle1 = nn.PixelShuffle(2)
-        self.duc1 = DUC(512, 1024)
-        self.duc2 = DUC(256, 1024 if conv_dim == 256 else 512)
+        self.duc1 = DUC(512, 1024, fused_eval=fused_eval)
+        self.duc2 = DUC(256, 1024 if conv_dim == 256 else 512,
+                        fused_eval=fused_eval)
         self.conv_out = nn.Conv2d(conv_dim, num_joints, 3, 1, 1)
         nn.init.normal_(self.conv_out.weight, std=0.001)
         nn.init.zeros_(self.conv_out.bias)
@@ -58,8 +61,11 @@ class FastPose(nn.Module):
         return self.preact(x.contiguous(memory_format=torch.channels_last))
 
     def head(self, feat):
-        """The backbone feature -> heatmaps (N, K, H/4, W/4)."""
-        return self.conv_out(self.duc2(self.duc1(self.suffle1(feat))))
+        """The backbone feature -> heatmaps (N, K, H/4, W/4).  `conv_out`
+        reads NCHW: K5's output is channels-last, and there cuDNN takes an
+        NHWC engine 2.7 times slower for the 17 output channels."""
+        y = self.duc2(self.duc1(self.suffle1(feat)))
+        return self.conv_out(y.contiguous())
 
     def forward(self, x, return_embedding: bool = False):
         """Heatmaps and, when asked, the GAP embedding of the same

@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..kernels.duc_conv import shuffle_conv3x3
+from ..kernels.fused_bottleneck import fold_bn
 from ..parallel.mesh import active_mesh, all_reduce_sum
 
 __all__ = ["BatchNorm2d", "batchnorm", "conv_transpose", "max_pool",
@@ -118,14 +120,34 @@ class SELayer(nn.Module):
 
 class DUC(nn.Module):
     """Dense Upsampling Convolution: 3x3 conv -> BN -> ReLU ->
-    PixelShuffle(upscale_factor)."""
+    PixelShuffle(upscale_factor).  With `fused_eval`, an eval-mode f32
+    forward that asks for no gradient runs as one launch of K5
+    (kernels/duc_conv.py; its plain version on the CPU) on the NHWC view
+    of x, and returns the NCHW view of its channels-last output, so that
+    a DUC after it reads that output as it lies."""
 
-    def __init__(self, inplanes: int, planes: int, upscale_factor: int = 2):
+    def __init__(self, inplanes: int, planes: int, upscale_factor: int = 2,
+                 fused_eval: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(inplanes, planes, 3, padding=1, bias=False)
         self.bn = batchnorm(planes)
         self.relu = nn.ReLU(inplace=True)
         self.pixel_shuffle = nn.PixelShuffle(upscale_factor)
+        self.fused_eval = fused_eval
+
+    def _fused(self, x):
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        return self.fused_eval and not self.training \
+            and x.dtype == torch.float32 and not grad \
+            and self.pixel_shuffle.upscale_factor == 2
 
     def forward(self, x):
-        return self.pixel_shuffle(self.relu(self.bn(self.conv(x))))
+        if not self._fused(x):
+            return self.pixel_shuffle(self.relu(self.bn(self.conv(x))))
+        bn = self.bn
+        s, b = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                       bn.eps)
+        y = shuffle_conv3x3(x.permute(0, 2, 3, 1).contiguous(),
+                            self.conv.weight, s, b)
+        return y.permute(0, 3, 1, 2)
