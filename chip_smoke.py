@@ -209,15 +209,8 @@ import tempfile
 import time
 from pathlib import Path
 
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12            # CUDA cores, no tensor cores
-TF32_FLOPS = 495e12          # tensor cores
-BF16_FLOPS = 989e12          # tensor cores
+from benchmark import bounds, chip, dcn_bounds
 
-# SimplePose-R50 at 256x192: (H, W, C, P, blocks in the fused tail)
-R50_CHAINS = [(64, 48, 256, 64, 2), (32, 24, 512, 128, 3),
-              (16, 12, 1024, 256, 5), (8, 6, 2048, 512, 2)]
 BATCH = 512
 HM_SHAPE = (BATCH, 17, 64, 48)
 VIDEO = dict(num_frames=64, num_persons=8, width=640, height=360)
@@ -686,7 +679,7 @@ def phase_chain_kernel(dtype, gen):
            "cudnn_ms": 0.0, "max_abs_err": 0.0, "f64_err": 0.0,
            "plain_f64_err": 0.0}
     bound_share = {"operations": 0.0, "bytes": 0.0}
-    for (H, W, C, P, nb) in R50_CHAINS:
+    for (H, W, C, P, nb) in bounds.resnet_tails(50, INPUT_SIZE):
         x, ws = _chain_inputs(BATCH, H, W, C, P, nb, dtype, gen)
         got = fused_bottleneck_chain(x, *ws)
         ref = bottleneck_chain_reference(x, *ws)
@@ -712,20 +705,22 @@ def phase_chain_kernel(dtype, gen):
                            reps=5)
         cudnn_ms = cuda_ms(lambda: cudnn_chain(x, ws), reps=5)
         flops = 2.0 * BATCH * H * W * (2 * C * P + 9 * P * P) * nb
-        nbytes = 2 * x.numel() * x.element_size() \
-            + sum(w.numel() * w.element_size() for w in ws)
-        t_ops = flops / BF16_FLOPS * 1e3 if not f32 else \
-            min(flops / F32_FLOPS, 3 * flops / TF32_FLOPS) * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
+        bound = bounds.k1_bound_s(BATCH, [(H, W, C, P, nb)],
+                                  x.element_size()) * 1e3
+        # the bound's side: its bytes are the stream read and written once
+        # and the operands read once
+        t_bytes = (2 * x.numel() * x.element_size()
+                   + sum(w.numel() * w.element_size() for w in ws)) \
+            / chip.HBM_BYTES_PER_S * 1e3
+        by = "operations" if bound > t_bytes else "bytes"
         floor_ms = 4 * x.numel() * x.element_size() * nb \
-            / HBM_BYTES_PER_S * 1e3
-        bound_share["operations" if t_ops >= t_bytes else "bytes"] += bound
+            / chip.HBM_BYTES_PER_S * 1e3
+        bound_share[by] += bound
         log(f"  K1 {str(dtype)[6:]} N={BATCH} {H}x{W} C={C} P={P} nb={nb}: "
             f"max|err| {max_err:.3e} mean|err| {mean_err:.3e} "
             f"(|ref|max {scale:.3e}) kernel {ms:.3f} ms plain "
             f"{plain_ms:.3f} ms bound {bound:.3f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'}) unfused "
+            f"({by}) unfused "
             f"floor {floor_ms:.3f} ms cuDNN chain {cudnn_ms:.3f} ms "
             f"({flops / ms / 1e9:.1f} TFLOP/s)")
         if not ok:
@@ -836,20 +831,15 @@ def phase_postprocess_kernel(gen):
     ms = cuda_ms(raw, reps=10, inner=20)
     wrapper_ms = cuda_ms(lambda: fused_postprocess(hms), reps=10, inner=20)
     plain_ms = cuda_ms(lambda: postprocess_reference(hms), reps=10)
-    nbytes = hms.numel() * 4 + (N * K * 2 + N * K + N) * 4
-    ops = hms.numel() * 20.0          # ~9 max + compares + adds per pixel
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    bound = bounds.k2_bound_s(N, K, H, W) * 1e3
     log(f"  K2 {tuple(hms.shape)}: coords/maxvals exact {exact}, gc max "
         f"rel err {gc_err:.3e}, kernel {ms:.4f} ms (wrapper "
         f"{wrapper_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
-        f"{max(t_bytes, t_ops):.4f} ms")
+        f"{bound:.4f} ms")
     if not exact or gc_err > 1e-5:
         raise AssertionError("K2 disagrees with the plain version")
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": max_err}
+            "bound_ms": bound, "bound_by": "bytes", "max_abs_err": max_err}
 
 
 def crop_batches(video, seed):
@@ -911,43 +901,6 @@ def grid_sample_theta(mats, width, height):
         [mats.astype(np.float64),
          np.broadcast_to([[[0, 0, 1]]], (len(mats), 1, 3))], 1)
         @ to_pix).astype(np.float32)
-
-
-def crop_bound(frames, fi, mats, dtype):
-    """K3's bound on these inputs: the larger of its bytes (every output
-    value written once; every source pixel that a tap of nonzero weight
-    reads, counted once over the batch; the matrices and frame indices)
-    over the HBM rate and about 20 flops per output value over the CUDA
-    cores' rate.  Returns (ms, "bytes" or "operations", source bytes)."""
-    import torch
-    F_, H, W, _ = frames.shape
-    oh, ow = INPUT_SIZE
-    dev = frames.device
-    m = mats[..., None, None]
-    gy, gx = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=dev),
-                            torch.arange(ow, dtype=torch.float32, device=dev),
-                            indexing="ij")
-    sx = m[:, 0, 0] * gx + m[:, 0, 1] * gy + m[:, 0, 2]
-    sy = m[:, 1, 0] * gx + m[:, 1, 1] * gy + m[:, 1, 2]
-    x0, y0 = sx.floor(), sy.floor()
-    fx, fy = sx - x0, sy - y0
-    f = fi[:, None, None]
-    touched = torch.zeros(F_ * H * W, dtype=torch.bool, device=dev)
-    for dy, wy in ((0, 1 - fy), (1, fy)):
-        for dx, wx in ((0, 1 - fx), (1, fx)):
-            x = x0.long() + dx
-            y = y0.long() + dy
-            ok = (x >= 0) & (x < W) & (y >= 0) & (y < H) & (wx * wy > 0) \
-                & (f >= 0) & (f < F_)
-            touched[((f * H + y) * W + x)[ok]] = True
-    src_bytes = touched.sum().item() * 3 * frames.element_size()
-    values = mats.shape[0] * oh * ow * 3
-    nbytes = src_bytes + values * torch.finfo(dtype).bits // 8 \
-        + mats.numel() * 4 + fi.numel() * 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = values * 20.0 / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations", src_bytes
 
 
 def check_crop(label, args, dtype):
@@ -1018,8 +971,12 @@ def time_crop(label, args, dtype, library=True):
                               reps=10, inner=20),
            "plain_ms": cuda_ms(lambda: rot_warp_crop_reference(
                *args, dtype=dtype), reps=3, warm=1)}
-    res["bound_ms"], res["bound_by"], src_bytes = crop_bound(frames, fi, mats,
-                                                             dtype)
+    src_bytes = bounds.k3_source_bytes(frames, fi, mats, out_size)
+    itemsize = torch.finfo(dtype).bits // 8
+    res["bound_ms"] = bounds.k3_bound_s(N, out_size, src_bytes,
+                                        itemsize) * 1e3
+    # each output value's 2 or 4 bytes outweigh its 20 flops at the peaks
+    res["bound_by"] = "bytes"
     res["library_ms"] = None
     if library:
         src = frames[fi].permute(0, 3, 1, 2).float().contiguous()
@@ -1043,8 +1000,8 @@ def time_crop(label, args, dtype, library=True):
         res["library_ms"] = cuda_ms(lib_call, reps=10, inner=5)
         del src
     # the bound as PRs 2-3 counted it: one source byte an output value
-    res["bound_pr3_ms"] = N * oh * ow * 3 * (torch.finfo(dtype).bits // 8
-                                             + 1) / HBM_BYTES_PER_S * 1e3
+    res["bound_pr3_ms"] = N * oh * ow * 3 * (itemsize + 1) \
+        / chip.HBM_BYTES_PER_S * 1e3
     log(f"  K3 {label} {str(dtype)[6:]} N={N} {oh}x{ow}: kernel "
         f"{res['ms']:.4f} ms (wrapper {res['wrapper_ms']:.4f} ms), copy "
         f"variant {res['copy_ms']:.4f} ms, plain "
@@ -3176,8 +3133,8 @@ def phase_fastpose_dcn(video, seed):
                 lambda: deform_columns(x, off, k, s, 1, None, g), reps=5)
             N, C, H, W = x.shape
             Ho, Wo = off.shape[-2:]
-            nbytes = 4 * (N * C * k * k * Ho * Wo + x.numel() + off.numel())
-            t_bound = nbytes / HBM_BYTES_PER_S * 1e3
+            t_bound = dcn_bounds.k4_bound_s(
+                N, [(C, H, W, Ho, Wo, s, g, False)]) * 1e3
             rows.append({"shape": [N, C, H, W, Ho, Wo, s],
                          "bit_for_bit": same, "ms": t_k4,
                          "eager_ms": t_eager, "bound_ms": t_bound,

@@ -89,7 +89,7 @@ def probe_k5(seed):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from benchmark import core, duc_bounds
-    from vatl4pose_tpu_torch.kernels import (fold_bn, shuffle_conv3x3,
+    from vatl4pose_tpu_torch.kernels import (fold_bn_module, shuffle_conv3x3,
                                              shuffle_conv3x3_reference)
     from vatl4pose_tpu_torch.models.layers import DUC
     cfg = core.load_spec(CELL)[2]
@@ -108,8 +108,7 @@ def probe_k5(seed):
                                 * (2.0 / (9 * cin)) ** 0.5)
             m.bn.running_var.uniform_(0.5, 1.5)
             m.bn.running_mean.normal_(0, 0.1)
-            s, b = fold_bn(m.bn.weight, m.bn.bias, m.bn.running_mean,
-                           m.bn.running_var, m.bn.eps)
+            s, b = fold_bn_module(m.bn)
             xs = x.permute(0, 2, 3, 1).contiguous()
             wt = m.conv.weight
             eager = m(x)

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""K1 against the frozen source of scripts/k1_base.py on one card: bit for
+"""K1 against its source at another git revision on one card: bit for
 bit, the time of each chain in turns, and the time of each product beside
 its bound.
 
-    python3 scripts/k1_products.py [--base PATH] [--out PATH]
+    python3 scripts/k1_products.py [--base REV] [--out PATH]
 
---base names the kernel source to hold the shipped one against (default
-scripts/k1_study_base.cu; a `git archive`'s csrc/fused_bottleneck.cu of an
-older tree does as well: one with the frozen source's C entries is
-launched as scripts/k1_base.py launches it, one whose f32 weights come
-split by the wrapper (it has k_major_split_f32) through the shipped
-wrapper with its library in place of the shipped one).
+--base names the revision whose vatl4pose_tpu_torch/csrc/fused_bottleneck.cu
+the shipped one is held against (default HEAD~1, the parent).  The source
+is read with `git show` (in a copy of the tree without .git, point GIT_DIR
+at a clone of the repository), built with nvcc, and launched through the
+shipped wrapper with its library in place of the shipped one; the
+revision's f32 weights must come split by the wrapper (its source has
+k_major_split_f32), as in every tree since K1's weights were split once a
+call.
 
 1. Equal bit for bit, f32 and bf16: the four SimplePose-R50 tails at N=512
    on chip_smoke.py phase 2's random operands and at N=120, the shapes of
@@ -42,6 +44,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+SOURCE = "vatl4pose_tpu_torch/csrc/fused_bottleneck.cu"
 N120 = 120
 PRODUCT = re.compile(r"conv_gemm_kernel<([^,]+), (\d+), (true|false), "
                      r"(true|false)>")
@@ -101,20 +104,33 @@ def profile_ms(fn, calls=6):
             for k in keys}
 
 
-def split_entries(path):
-    """The library at `path` bound with the shipped C signatures where it
-    splits the f32 weights itself (it has k_major_split_f32), else
-    None."""
+def build_base(rev, out_dir):
+    """The library of `rev`'s fused_bottleneck.cu, built with `-Xptxas -v`
+    into out_dir and bound with the shipped C signatures of the entries
+    it has: (library, nvcc's output)."""
     import ctypes
     from vatl4pose_tpu_torch.kernels import _build
-    lib = ctypes.CDLL(str(path))
+    src = out_dir / "base.cu"
+    src.write_text(subprocess.run(
+        ["git", "show", f"{rev}:{SOURCE}"], cwd=ROOT, check=True,
+        capture_output=True, text=True).stdout)
+    lib_path = out_dir / "libbase.so"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(lib_path), str(src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc of {rev}'s source failed:\n"
+                           f"{proc.stdout[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
     if not hasattr(lib, "k_major_split_f32"):
-        return None
+        raise RuntimeError(f"{rev}'s K1 splits its f32 weights in the "
+                           "kernel: the shipped wrapper cannot launch it")
     for fn, argtypes in _build.SIGNATURES["fused_bottleneck"].items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-    return lib
+    return lib, proc.stdout
 
 
 def bitwise_equal(a, b):
@@ -125,8 +141,7 @@ def bitwise_equal(a, b):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--base", default=str(ROOT / "scripts" /
-                                          "k1_study_base.cu"))
+    ap.add_argument("--base", default="HEAD~1")
     ap.add_argument("--out", default=str(ROOT / "vatl4pose_tpu_torch" /
                                          "build" / "k1_products.json"))
     args = ap.parse_args()
@@ -137,7 +152,7 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from scripts import k1_base
+    from benchmark.bounds import resnet_tails
     from tests.test_torch_cuda import (cancelling_chain_operands,
                                        he_chain_operands)
     from vatl4pose_tpu_torch.kernels import _build, fused_bottleneck_chain
@@ -151,13 +166,7 @@ def main():
     _build.build(["fused_bottleneck"], verbose=True)
     out_dir = _build.BUILD_DIR / "k1_base"
     out_dir.mkdir(parents=True, exist_ok=True)
-    proc = k1_base.nvcc(args.base, out_dir / "libbase.so")
-    base_ptxas = proc.communicate()[0]
-    if proc.returncode != 0:
-        print(base_ptxas[-4000:], file=sys.stderr)
-        return 1
-    wrapped = split_entries(out_dir / "libbase.so")
-    base = None if wrapped else k1_base.bind(out_dir / "libbase.so")
+    base, base_ptxas = build_base(args.base, out_dir)
     for who, text in (("shipped", _build.ptxas_info["fused_bottleneck"]),
                       ("base", base_ptxas)):
         for line in text.splitlines():
@@ -165,10 +174,8 @@ def main():
                 cs.log(f"  ptxas {who}: {line.strip()}")
 
     def run_base(x, *ws):
-        if base is not None:
-            return k1_base.launch(base, x, *ws)
         shipped = _build.load("fused_bottleneck")
-        _build._libs["fused_bottleneck"] = wrapped
+        _build._libs["fused_bottleneck"] = base
         try:
             return fused_bottleneck_chain(x, *ws)
         finally:
@@ -190,7 +197,7 @@ def main():
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype)[6:]
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for (H, W, C, P, nb) in cs.R50_CHAINS:
+        for (H, W, C, P, nb) in resnet_tails(50, (256, 192)):
             tail = f"{dt} {H}x{W} C={C} P={P} nb={nb}"
             x, ws = cs._chain_inputs(cs.BATCH, H, W, C, P, nb, dtype, gen)
             check(f"{tail} N={cs.BATCH}", x, ws)

@@ -644,6 +644,39 @@ def test_vl4pose_pass_runs_one_backbone_through_k1(cuda, tmp_path):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max(), key
 
 
+@pytest.mark.cuda
+def test_eval_forward_under_autograd_gives_the_tails_their_gradients(cuda):
+    """An eval-mode forward of a fused_eval SimplePose-R50 that asks for a
+    gradient takes the module graph (kernels/serving.py's rule), not K1,
+    whose output carries no autograd graph: every parameter of the four
+    stage tails gets the gradient that the same model built without
+    fused_eval gets, within 1e-5 of its scale (cuDNN's backward is not
+    bit-reproducible from run to run)."""
+    from vatl4pose_tpu_torch.models import SimplePose
+    gen = torch.Generator().manual_seed(7)
+    fused, plain = (SimplePose(num_joints=17, num_layers=50,
+                               deconv_dim=(32, 32, 32), fused_eval=f,
+                               device="cpu") for f in (True, False))
+    plain.load_state_dict(he_scaled_(fused, gen).state_dict())
+    x = torch.randn((2, 3, 64, 64), generator=gen).to(cuda)
+    grads = []
+    for model in (fused, plain):
+        model = model.to(cuda).eval()
+        reset_launch_counts()
+        model(x).square().sum().backward()
+        torch.cuda.synchronize()
+        assert fused_bottleneck_chain.launches == 0
+        grads.append(dict(model.named_parameters()))
+    tails = [n for n in grads[1]
+             if n.startswith("preact.layer") and n.split(".")[2] != "0"]
+    # 12 tail blocks of 3 convs and 3 BNs (weight and bias)
+    assert len(tails) == 12 * 9
+    for n in tails:
+        got, want = grads[0][n].grad, grads[1][n].grad
+        assert got is not None, n
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max(), n
+
+
 def _pretrain_cfg(root, ann, epochs):
     """posetrack_train's config at a small width: SimplePose-R50 (its
     bottleneck tails reach K1) with 32-wide deconvolutions at 64x64."""

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from benchmark import duc_bounds
-from vatl4pose_tpu_torch.kernels import (fold_bn, reset_launch_counts,
+from vatl4pose_tpu_torch.kernels import (fold_bn_module, reset_launch_counts,
                                          shuffle_conv3x3,
                                          shuffle_conv3x3_reference,
                                          shuffle_split, tf32_split)
@@ -56,11 +56,6 @@ def duc(cin, cout, seed, device="cpu"):
     return m.to(device).eval()
 
 
-def folded(m):
-    return fold_bn(m.bn.weight, m.bn.bias, m.bn.running_mean,
-                   m.bn.running_var, m.bn.eps)
-
-
 def stream(n, cin, h, w, seed, device="cpu"):
     """A post-ReLU NCHW stream, channels-last as the backbone leaves it."""
     g = torch.Generator().manual_seed(seed)
@@ -87,7 +82,7 @@ def test_plain_version_equals_the_eager_duc(few_threads, shape):
     cin, cout, h, w = shape
     m = duc(cin, cout, seed=cin)
     x = stream(3, cin, h, w, seed=1)
-    s, b = folded(m)
+    s, b = fold_bn_module(m.bn)
     with torch.no_grad():
         want = m.pixel_shuffle(m.relu(m.bn(m.conv(x))))
         got = shuffle_conv3x3_reference(x.permute(0, 2, 3, 1).contiguous(),
@@ -214,7 +209,7 @@ def distances(m, x):
     exact = eager_f64(m, x)
     scale = exact.abs().max().item()
     with torch.no_grad():
-        s, b = folded(m)
+        s, b = fold_bn_module(m.bn)
         reset_launch_counts()
         got = {"K5": shuffle_conv3x3(x.permute(0, 2, 3, 1).contiguous(),
                                      m.conv.weight, s, b)}

@@ -34,7 +34,7 @@ from vatl4pose_tpu_torch.kernels import (deform_columns, deform_conv,
                                          shuffle_conv3x3,
                                          shuffle_conv3x3_reference)
 from vatl4pose_tpu_torch.kernels.deform_conv import DeformConv2d
-from vatl4pose_tpu_torch.models import build_sppe, layers
+from vatl4pose_tpu_torch.models import build_sppe, layers, resnet
 
 CFG = json.loads((Path(__file__).resolve().parent.parent / "benchmark"
                   / "configs" / "fastpose_dcn_r50.json").read_text())
@@ -146,44 +146,80 @@ def test_offsets_move_the_samples(few_threads):
     assert rel(h0, h1) > 1e-2
 
 
-def test_routes(few_threads, monkeypatch):
-    """K4's route (`deform_im2col`) in eval with fused_eval and no
-    gradient, once a deformable 3x3 (13 a forward), and K5's
-    (`shuffle_conv3x3`), once a DUC (2 a forward); the eager columns and
-    the eager DUC in train mode, with fused_eval off, under autograd and
-    for bf16."""
-    calls, duc_calls = [], []
-
-    def k4(*a, **kw):
-        calls.append(1)
-        return deform_columns(*a, **kw)
-
-    def k5(*a, **kw):
-        duc_calls.append(1)
-        return shuffle_conv3x3_reference(*a, **kw)
-
-    monkeypatch.setattr(deform_conv, "deform_im2col", k4)
-    monkeypatch.setattr(layers, "shuffle_conv3x3", k5)
+@pytest.fixture(scope="module")
+def route_port():
     cfg = config()
-    port, _ = models(cfg, "cpu")
-    x = crops(1, cfg, "cpu")
-    with torch.no_grad():
-        port.eval()(x)
-    assert len(calls) == 13 and len(duc_calls) == 2
-    calls.clear()
-    duc_calls.clear()
-    port.train()(x)
-    port.eval()(x)                    # autograd: weights need a gradient
-    with torch.no_grad():
-        unfused, _ = models(cfg, "cpu", fused_eval=False)
-        unfused.eval()(x)
-        conv = port.preact.layer3[1].conv2.to(torch.bfloat16).eval()
-        conv(torch.ones((1, 256, 6, 4), dtype=torch.bfloat16),
-             torch.zeros((1, 18, 6, 4), dtype=torch.bfloat16))
-        duc = port.duc2.to(torch.bfloat16).eval()
-        duc(torch.ones((1, 256, 6, 4), dtype=torch.bfloat16))
-    assert conv.fused_eval and calls == []
-    assert duc.fused_eval and duc_calls == []
+    port = build_sppe(cfg["MODEL"], cfg["DATA_PRESET"], fused_eval=True,
+                      device="cpu")
+    port.load_state_dict(estimator_weights(cfg, SEED, "cpu"))
+    return port
+
+
+# case: (mode, dtype, autograd, fused_eval)
+ROUTE_CASES = {
+    "train": ("train", torch.float32, True, True),
+    "eval_autograd": ("eval", torch.float32, True, True),
+    "eval_f32_no_grad": ("eval", torch.float32, False, True),
+    "eval_bf16": ("eval", torch.bfloat16, False, True),
+    "eval_f64": ("eval", torch.float64, False, True),
+    "fused_eval_off": ("eval", torch.float32, False, False),
+}
+# kernel: (served cases, (kernel, eager) calls a served forward makes,
+# (kernel, eager) calls any other forward makes): K1 on stage 1's tail
+# (16 bottleneck forwards less its 2), K4 on the 13 deformable 3x3s, K5
+# on the two DUCs
+ROUTES = {
+    "k1": ({"eval_f32_no_grad", "eval_bf16"}, (1, 14), (0, 16)),
+    "k4": ({"eval_f32_no_grad"}, (13, 0), (0, 13)),
+    "k5": ({"eval_f32_no_grad"}, (2, 0), (0, 2)),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+@pytest.mark.parametrize("kernel", list(ROUTES))
+def test_routes(few_threads, monkeypatch, route_port, kernel, case):
+    """kernels/serving.py's rule through the benchmark configuration's
+    model: each kind of forward runs the kernel's function (its plain
+    version here) or the module graph, and which ran is counted.  Only an
+    eval forward that asks for no gradient, with fused_eval, in a dtype
+    the kernel takes is served: f32 for all three, bf16 for K1 alone."""
+    mode, dtype, autograd, fused_eval = ROUTE_CASES[case]
+    port = copy.deepcopy(route_port).to(dtype).train(mode == "train")
+    for m in port.modules():
+        if hasattr(m, "fused_eval"):
+            m.fused_eval = fused_eval
+    calls = {"kernel": 0, "eager": 0}
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    if kernel == "k1":
+        monkeypatch.setattr(resnet, "fused_bottleneck_chain", counted(
+            "kernel", resnet.fused_bottleneck_chain))
+        monkeypatch.setattr(resnet.Bottleneck, "forward", counted(
+            "eager", resnet.Bottleneck.forward))
+    elif kernel == "k4":
+        # the CPU wrapper hands CPU tensors to deform_columns itself
+        monkeypatch.setattr(deform_conv, "deform_im2col", counted(
+            "kernel", deform_columns))
+        monkeypatch.setattr(deform_conv, "deform_columns", counted(
+            "eager", deform_columns))
+    else:
+        monkeypatch.setattr(layers, "shuffle_conv3x3", counted(
+            "kernel", shuffle_conv3x3_reference))
+        for duc in (port.duc1, port.duc2):
+            monkeypatch.setattr(duc.pixel_shuffle, "forward", counted(
+                "eager", duc.pixel_shuffle.forward))
+    x = crops(1, config(), "cpu").to(dtype)
+    with torch.set_grad_enabled(autograd):
+        hm = port(x)
+    assert hm.dtype == dtype and torch.isfinite(hm).all()
+    served, on, off = ROUTES[kernel]
+    assert (calls["kernel"], calls["eager"]) == (on if case in served
+                                                 else off)
 
 
 def test_cpu_columns_are_the_eager_route():

@@ -276,32 +276,3 @@ class TestPostprocess:
                     assert (visits == 1).all(), (width, n)
                 want = localpeak_mean(torch.from_numpy(hms[n])).item()
                 assert np.isclose(s / max(c, 1), want, rtol=1e-6, atol=0)
-
-
-def test_k1_study_patch_rebuilds_the_measured_source():
-    """scripts/k1_f32_precision.py rebuilds the f32 summation schemes it
-    measured from the study's base, scripts/k1_study_base.cu (the chain
-    kernel as the study measured it, with the shipped kernel's arithmetic,
-    scheme 12), and scripts/k1_f32_schemes.patch.  The patch applies to the
-    base and gives the source the study hashed; the shipped kernel has one
-    scheme and no macro to pick another; a base line the patch expects,
-    changed, is refused."""
-    import importlib.util
-    import pathlib
-    root = pathlib.Path(__file__).resolve().parent.parent
-    spec = importlib.util.spec_from_file_location(
-        "k1_f32_precision", root / "scripts" / "k1_f32_precision.py")
-    study = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(study)
-    text = study.study_source()
-    assert "#define K1_F32_SCHEME 12" in text
-    shipped = (root / "vatl4pose_tpu_torch" / "csrc" /
-               "fused_bottleneck.cu").read_text()
-    assert "K1_F32_SCHEME" not in shipped
-    base = study.BASE.read_text()
-    patch = study.PATCH.read_text()
-    line = "        Mma<T, BN>::run(part, da, dbl);\n"
-    assert base.count(line) == 1
-    with pytest.raises(ValueError, match="does not apply"):
-        study.apply_patch(base.replace(line, line.replace("dbl", "db")),
-                          patch)

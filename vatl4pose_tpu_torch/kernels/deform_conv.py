@@ -5,28 +5,31 @@ CUDA kernel csrc/deform_im2col.cu (K4) and the eager PyTorch route.
 Replaces the reference's CUDA extension (dcn/src/deform_conv_cuda.cpp):
 each output location samples its K*K taps bilinearly at learned offsets
 (deformable im2col), then one dense product with the kernel
-(`torch.matmul`, in both routes, the columns read transposed so that the
-output is channels-last like the rest of the port's stream).  The layout
-is the CUDA kernel's, as the JAX package keeps it: the offsets hold
-(dy, dx) interleaved per tap, channel ((g*K*K + k)*2 + {0: dy, 1: dx})
-for deform group g and tap k = ky*K + kx; `modulated=True` (DCNv2) adds
-G*K*K sigmoid masks after the offsets.  A tap outside the image reads
-0, each of the four bilinear corners masked by its own in-bounds test,
-not by grid_sample's padding modes.  Tensors are NCHW at the boundary,
-any memory format.
+(`torch.bmm` of the columns read transposed and the kernel, in both
+routes, so that the output is channels-last like the rest of the port's
+stream).  The layout is the CUDA kernel's, as the JAX package keeps it:
+the offsets hold (dy, dx) interleaved per tap, channel
+((g*K*K + k)*2 + {0: dy, 1: dx}) for deform group g and tap
+k = ky*K + kx; `modulated=True` (DCNv2) adds G*K*K sigmoid masks after
+the offsets.  A tap outside the image reads 0, each of the four bilinear
+corners masked by its own in-bounds test, not by grid_sample's padding
+modes.  Tensors are NCHW at the boundary, any memory format.
 
 Two routes to the columns (N, Cin*K*K, Ho*Wo):
   eager   `deform_columns`: four gathers (`bilinear_taps`), each followed
           by its in-bounds mask, its weight and a sum; autograd gives the
-          backward.  Training, every forward that asks for a gradient, and
-          bf16 streams (the AL CLI's --speedup) take it.
+          backward.  `deform_conv2d` (the JAX package's signature) always
+          takes it, and so does every forward of `DeformConv2d` that
+          kernels/serving.py's rule does not serve: training, a forward
+          that asks for a gradient, a bf16 stream (the AL CLI's
+          --speedup).
   K4      `deform_im2col`: one launch writes the columns, reading the
           channels-last stream, the offsets and the mask through their
           strides, in the eager route's f32 arithmetic and order, so its
-          columns are the eager route's bit for bit.  `DeformConv2d` takes
-          it in eval mode with `fused_eval` (the route the chain kernel K1
-          takes in models/resnet.py) for f32 streams.  FastPose's DCN
-          stages (AlphaPose's Fast Pose (DCN)) score through it.
+          columns are the eager route's bit for bit.  `DeformConv2d`
+          takes it on a forward that the rule serves (`fused_eval`, eval
+          mode, f32, no gradient asked for).  FastPose's DCN stages
+          (AlphaPose's Fast Pose (DCN)) score through it.
 The wrapper launches the kernel for CUDA tensors and takes the eager
 columns only for CPU tensors; any other device raises.
 """
@@ -38,6 +41,7 @@ from torch import nn
 
 from ..utils.profiling import span
 from . import _build
+from .serving import F32, takes_kernel
 
 __all__ = ["bilinear_taps", "deform_columns", "deform_im2col",
            "deform_conv2d", "DeformConv2d"]
@@ -144,21 +148,13 @@ def deform_im2col(x, offset, K: int, stride: int = 1, padding: int = 1,
 deform_im2col.launches = 0
 
 
-def deform_conv2d(x, offset, weight, stride: int = 1, padding: int = 1,
-                  mask=None, deform_groups: int = 1, fused: bool = False):
-    """x (N, Cin, H, W); offset (N, 2*G*K*K, Ho, Wo) in the interleaved
-    (dy, dx) layout; weight (Cout, Cin, K, K); mask: None or the sigmoided
-    (N, G*K*K, Ho, Wo).  Returns (N, Cout, Ho, Wo), channels-last in
-    memory.  `fused`: the columns by K4 where x is float32 and no gradient
-    is asked for."""
-    N, Cin, H, W = x.shape
+def _conv(columns, x, offset, weight, stride, padding, mask, deform_groups):
+    """The columns by `columns` (`deform_columns` or `deform_im2col`), then
+    the product with the kernel."""
+    N, _, H, W = x.shape
     Cout, _, K, _ = weight.shape
     Ho, Wo = _out_size(H, W, K, stride, padding)
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, offset, weight, mask))
-    route = deform_im2col if fused and x.dtype == torch.float32 \
-        and not grad else deform_columns
-    cols = route(x, offset, K, stride, padding, mask, deform_groups)
+    cols = columns(x, offset, K, stride, padding, mask, deform_groups)
     # the product with the columns read transposed lands channels-last,
     # as the port's stream is: (N, Ho*Wo, Cout) = cols^T w^T; bmm takes
     # both operands transposed as they lie (matmul would fold N into the
@@ -168,11 +164,22 @@ def deform_conv2d(x, offset, weight, stride: int = 1, padding: int = 1,
     return out.view(N, Ho, Wo, Cout).permute(0, 3, 1, 2)
 
 
+def deform_conv2d(x, offset, weight, stride: int = 1, padding: int = 1,
+                  mask=None, deform_groups: int = 1):
+    """x (N, Cin, H, W); offset (N, 2*G*K*K, Ho, Wo) in the interleaved
+    (dy, dx) layout; weight (Cout, Cin, K, K); mask: None or the sigmoided
+    (N, G*K*K, Ho, Wo).  Returns (N, Cout, Ho, Wo), channels-last in
+    memory, from the eager columns."""
+    return _conv(deform_columns, x, offset, weight, stride, padding, mask,
+                 deform_groups)
+
+
 class DeformConv2d(nn.Module):
     """dcn/deform_conv.py's DeformConv / ModulatedDeformConv without
     bias: the offset (and mask) conv lives in the caller
     (Bottleneck.conv2_offset), as in the reference's layout.  With
-    `fused_eval`, eval mode takes K4 (see the module's docstring)."""
+    `fused_eval`, a forward that the serving rule serves takes K4 (see the
+    module's docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
@@ -192,7 +199,9 @@ class DeformConv2d(nn.Module):
             mask = None
             if self.modulated:
                 mask = torch.sigmoid(offset_and_mask[:, n_off:])
-            return deform_conv2d(x, offset_and_mask[:, :n_off], self.weight,
-                                 self.stride, self.padding, mask,
-                                 self.deform_groups,
-                                 fused=self.fused_eval and not self.training)
+            columns = deform_im2col \
+                if takes_kernel(self, F32, x, offset_and_mask) \
+                else deform_columns
+            return _conv(columns, x, offset_and_mask[:, :n_off],
+                         self.weight, self.stride, self.padding, mask,
+                         self.deform_groups)

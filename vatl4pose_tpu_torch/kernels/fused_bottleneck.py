@@ -1,13 +1,15 @@
 """Fused ResNet bottleneck chain (counterpart of vatl4pose_tpu/kernels/
 fused_bottleneck.py): the wrapper of the CUDA kernel csrc/
-fused_bottleneck.cu, its plain PyTorch version and `fold_bn`.
+fused_bottleneck.cu, its plain PyTorch version, `fold_bn` and
+`fold_bn_module`.
 
 `nb` stride-1, non-downsampling bottlenecks over an NHWC stream with
 eval-mode BatchNorm folded into a per-channel scale and bias:
   s = gamma / sqrt(var + eps),  b = beta - mean * s.
 Each block is conv1x1·s+b, ReLU; conv3x3·s+b, ReLU; conv1x1·s+b,
 + identity, ReLU; f32 accumulation, every epilogue in f32, then a cast back
-to the stream dtype.  Used by models/resnet.py when `fused_eval=True`.
+to the stream dtype.  Used by models/resnet.py on the forwards that
+kernels/serving.py's rule gives the kernel.
 
 The wrapper launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors; any other device raises, and so do CUDA
@@ -30,8 +32,8 @@ from . import _build
 
 _DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-__all__ = ["fold_bn", "fused_bottleneck_chain", "bottleneck_chain_reference",
-           "tf32_split", "k_major_split"]
+__all__ = ["fold_bn", "fold_bn_module", "fused_bottleneck_chain",
+           "bottleneck_chain_reference", "tf32_split", "k_major_split"]
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -40,6 +42,13 @@ def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
                               for t in (scale, bias, mean, var))
     s = scale * torch.rsqrt(var + eps)
     return s, bias - mean * s
+
+
+def fold_bn_module(bn):
+    """`fold_bn` of a BatchNorm module's affine, running statistics and
+    eps."""
+    return fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                   bn.eps)
 
 
 def bottleneck_chain_reference(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):

@@ -6,9 +6,10 @@ FINAL_CONV_KERNEL) mapped by each model's `from_cfg`.  An unknown TYPE
 raises the registry's KeyError.
 
 One nn.Module serves both modes, so there is no `train` argument: train()
-runs the exact module graph, eval() with `fused_eval=True` routes the
-ResNet bottleneck tails of SimplePose and FastPose through the chain
-kernel (models/resnet.py); HRNet ignores `fused_eval`.
+runs the exact module graph; with `fused_eval=True`, an eval forward that
+asks for no gradient takes the hand kernels where kernels/serving.py's
+rule gives them (SimplePose's and FastPose's bottleneck tails, FastPose's
+deformable 3x3s and DUCs); HRNet ignores `fused_eval`.
 """
 
 from __future__ import annotations

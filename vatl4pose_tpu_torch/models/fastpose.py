@@ -2,13 +2,15 @@
 alphapose/models/fastpose.py:14-73): an SE-ResNet (`preact`, optional DCN
 stages), PixelShuffle(2) (`suffle1`, the reference's spelling), DUC(512 ->
 1024), DUC(256 -> 512, or 1024 for CONV_DIM 256) and a 3x3 `conv_out` to
-K heatmaps.  With `fused_eval=True` in eval mode the SE-ResNet's stage
-tails (plain bottlenecks: SE sits on each stage's block 0) run through
-the chain kernel K1, as SimplePose's do, the deformable 3x3s of DCN
-stages (AlphaPose's Fast Pose (DCN): stages 2-4) take their columns from
-the deformable im2col kernel K4, and each DUC is one launch of K5 (3x3
-conv, folded BN, ReLU and the shuffle), the first reading `suffle1`'s
-output made channels-last, the second the first's NHWC output."""
+K heatmaps.  With `fused_eval=True`, on a forward that
+kernels/serving.py's rule serves (eval, no gradient asked for, f32; bf16
+for K1 alone), the SE-ResNet's stage tails (plain bottlenecks: SE sits
+on each stage's block 0) run through the chain kernel K1, as
+SimplePose's do, the deformable 3x3s of DCN stages (AlphaPose's Fast
+Pose (DCN): stages 2-4) take their columns from the deformable im2col
+kernel K4, and each DUC is one launch of K5 (3x3 conv, folded BN, ReLU
+and the shuffle), the first reading `suffle1`'s output made
+channels-last, the second the first's NHWC output."""
 
 from __future__ import annotations
 

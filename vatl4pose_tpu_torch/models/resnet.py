@@ -13,14 +13,15 @@ zero-initialised `conv2_offset`.
 
 Tensors are NCHW at the module boundary and channels-last in memory.
 
-`fused_eval=True` (serving, eval mode only): blocks 1..n-1 of every
+`fused_eval=True`: on a forward that kernels/serving.py's rule serves
+(eval mode, f32 or bf16, no gradient asked for), blocks 1..n-1 of every
 bottleneck stage run through the CUDA chain kernel
 (kernels/fused_bottleneck.py) with eval BN folded on every forward call,
 so weights changed after construction are always seen.  The TPU package
 splits the chain by a VMEM weight budget; all four stages' tails go
 through the kernel here, bar the tails of DCN stages: their deformable
-3x3s take their columns from the deformable im2col kernel K4 instead.
-Training and `fused_eval=False` run the exact module graph.
+3x3s take their columns from the deformable im2col kernel K4 instead,
+by the same rule.  Every other forward runs the exact module graph.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..kernels.deform_conv import DeformConv2d
-from ..kernels.fused_bottleneck import fold_bn, fused_bottleneck_chain
+from ..kernels.fused_bottleneck import (fold_bn_module,
+                                        fused_bottleneck_chain)
+from ..kernels.serving import K1_DTYPES, takes_kernel
 from .layers import SELayer, batchnorm, max_pool
 
 RESNET_SPECS = {
@@ -104,13 +107,12 @@ class Bottleneck(nn.Module):
     def folded(self, dtype):
         """(w1 (C, P), s1, b1, w2 (3, 3, P, P), s2, b2, w3 (P, C), s3, b3):
         conv kernels in `dtype`, folded BN in f32."""
-        def fold(bn):
-            return fold_bn(bn.weight, bn.bias, bn.running_mean,
-                           bn.running_var, bn.eps)
-        return (self.conv1.weight[:, :, 0, 0].t().to(dtype), *fold(self.bn1),
+        return (self.conv1.weight[:, :, 0, 0].t().to(dtype),
+                *fold_bn_module(self.bn1),
                 self.conv2.weight.permute(2, 3, 1, 0).to(dtype),
-                *fold(self.bn2),
-                self.conv3.weight[:, :, 0, 0].t().to(dtype), *fold(self.bn3))
+                *fold_bn_module(self.bn2),
+                self.conv3.weight[:, :, 0, 0].t().to(dtype),
+                *fold_bn_module(self.bn3))
 
 
 class ResNet(nn.Module):
@@ -160,11 +162,11 @@ class ResNet(nn.Module):
                           fused_eval=fused_eval)
 
     def forward(self, x):
+        served = takes_kernel(self, K1_DTYPES, x)
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         for li in range(4):
             layer = getattr(self, f"layer{li + 1}")
-            if self.fused_eval and not self.training and len(layer) > 1 \
-                    and not self.stage_dcn[li]:
+            if served and len(layer) > 1 and not self.stage_dcn[li]:
                 x = _fused_tail(layer[0](x), layer[1:])
             else:
                 x = layer(x)
