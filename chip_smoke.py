@@ -22,11 +22,15 @@ Phases, each of which fails the run on error, each with its wall time:
      grid_sample as the library yardstick, its bound on these inputs, and
      at the scoring chunk the einsum crop it replaced, timed and
      profiled), each K2 and K3 time the kernel's own launches with the
-     wrapper's time beside it;
+     wrapper's time beside it; K6 (SimplePose's deconvolution stages)
+     at the head's three stages, against its plain version and no further
+     from an f64 stage than cuDNN's f32, beside its bound and the module
+     stages on cuDNN;
   3. scoring path: one THC+WPU scoring pass (ScoringEngine, fused_eval) of
      SimplePose-R50 at 256x192 over a synthetic video of 512 samples, in
      f32 parity mode and in bf16, with the launch counters reset before
-     each pass and checked after it (K1, K2 and K3 each launched);
+     each pass and checked after it (K1, K2 and K3 each launched; K6 3
+     times a chunk in f32, never in bf16);
      outputs checked for shape and finiteness; warm samples/s and a
      torch.profiler breakdown of one warm pass, which must run no
      aten::einsum; the first 32 samples' heatmaps and embeddings held
@@ -49,14 +53,16 @@ Phases, each of which fails the run on error, each with its wall time:
      (RETRAIN.ALPHA 250 -> 4; the roots and weights each phase sets): 9
      rounds and the final evaluation.  Checked: result.json's fields, percentages rising
      to 100, every sample queried once, a cycle_times.jsonl line a cycle,
-     the launch counters (reset before the loop) at K1 4x, K2 1x and K3 1x
-     a scoring pass and K3 once an optimizer step; then the retrained
-     model through K1, K1's plain version, the unfused cuDNN graph and an
-     f64 CPU forward (fold_check: K1 at most 2x cuDNN's f32 distance from
-     f64), and round 0's coreset in f32 on the card against f64 on the
+     the launch counters (reset before the loop) at K1 4x, K6 3x, K2 1x
+     and K3 1x a scoring pass and K3 once an optimizer step; then the
+     retrained model through K1 and K6, their plain versions, the unfused
+     cuDNN graph and an f64 CPU forward (fold_check: K1 and K6 at most 2x
+     cuDNN's f32 distance from f64, the backbone's and the head's folds
+     within 1e-4), and round 0's coreset in f32 on the card against f64 on the
      host; each round's wall and phase split printed;
-  6. the same loop with --speedup: bf16 serving (K1 and K3 in bf16) and
-     bf16 retraining; the same checks, every K1 and K3 launch in bf16;
+  6. the same loop with --speedup: bf16 serving (K1 and K3 in bf16, K6
+     never: it is f32 only) and bf16 retraining; the same checks, every K1
+     and K3 launch in bf16;
   7. streaming: the DUW loop in f32 on a JRDB-wide video (3760x480 .npy
      frames, 768 samples) over a cut frame budget, so that the frames stay
      in host RAM and the crops come from the host warp: it must stream,
@@ -209,7 +215,7 @@ import tempfile
 import time
 from pathlib import Path
 
-from benchmark import bounds, chip, dcn_bounds
+from benchmark import bounds, chip, dcn_bounds, deconv_bounds
 
 BATCH = 512
 HM_SHAPE = (BATCH, 17, 64, 48)
@@ -842,6 +848,95 @@ def phase_postprocess_kernel(gen):
             "bound_ms": bound, "bound_by": "bytes", "max_abs_err": max_err}
 
 
+def phase_deconv_kernel(gen):
+    """K6 at SimplePose-R50's three deconvolution stages (MODEL at
+    INPUT_SIZE) at N = BATCH, He-scaled weights and eval BNs with random
+    statistics, each stage fed the one before: against its plain version
+    (four 2x2 cuDNN convolutions, the same folded BN) within 1e-5 of the
+    output's max, and both versions' distance from the module stage in
+    f64 (cuDNN), K6's no larger than the module stage's in f32.  `ms` is
+    the wrapper's time (the weights' split and the product), beside the
+    plain version's, the module stage's (ConvTranspose2d, BN, ReLU on
+    cuDNN: the library yardstick) and the bound of
+    benchmark/deconv_bounds.py (three TF32 products), summed over the
+    stages."""
+    import torch
+    from vatl4pose_tpu_torch.kernels import (fold_bn_module,
+                                             subpixel_deconv4x4,
+                                             subpixel_deconv4x4_reference)
+    layers = deconv_bounds.deconv_layers({
+        "MODEL": {"TYPE": "SimplePose", "NUM_LAYERS": MODEL["num_layers"],
+                  "NUM_DECONV_FILTERS": list(MODEL["deconv_dim"])},
+        "DATA_PRESET": {"IMAGE_SIZE": list(INPUT_SIZE)}})
+    cin, _, h, w = layers[0]
+    x = torch.randn((BATCH, cin, h, w), device="cuda", generator=gen) \
+        .relu().contiguous(memory_format=torch.channels_last)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "max_abs_err": 0.0, "f64_err": 0.0, "library_f64_err": 0.0}
+    ok = True
+    with torch.no_grad():
+        for cin, cout, h, w in layers:
+            conv = torch.nn.ConvTranspose2d(cin, cout, 4, 2, 1, bias=False)
+            bn = torch.nn.BatchNorm2d(cout)
+            conv, bn = conv.cuda().eval(), bn.cuda().eval()
+            conv.weight.copy_(torch.randn(conv.weight.shape, device="cuda",
+                                          generator=gen)
+                              * (2.0 / (4 * cin)) ** 0.5)
+            bn.running_mean.normal_(0, 0.1, generator=gen)
+            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+            s, b = fold_bn_module(bn)
+            xs = x.permute(0, 2, 3, 1).contiguous()
+            wt = conv.weight
+
+            def module_stage():
+                return torch.relu(bn(conv(x)))
+            got = subpixel_deconv4x4(xs, wt, s, b)
+            ref = subpixel_deconv4x4_reference(xs, wt, s, b)
+            lib = module_stage().permute(0, 2, 3, 1)
+            y = torch.nn.functional.conv_transpose2d(
+                x.double(), wt.double(), stride=2, padding=1)
+            y = torch.relu(y * s.double()[:, None, None]
+                           + b.double()[:, None, None]).permute(0, 2, 3, 1)
+            scale = y.abs().max().item()
+            err = (got - ref).abs().max().item()
+            d = {k: (v.double() - y).abs().max().item() / scale
+                 for k, v in (("K6", got), ("plain", ref),
+                              ("module", lib))}
+            del y, ref, lib
+            ms = cuda_ms(lambda: subpixel_deconv4x4(xs, wt, s, b))
+            plain_ms = cuda_ms(
+                lambda: subpixel_deconv4x4_reference(xs, wt, s, b), reps=5)
+            lib_ms = cuda_ms(module_stage, reps=5)
+            bound = deconv_bounds.k6_bound_s(BATCH, [(cin, cout, h, w)]) \
+                * 1e3
+            stage_ok = err <= 1e-5 * got.abs().max().item() \
+                and d["K6"] <= d["module"]
+            ok = ok and stage_ok
+            log(f"  K6 N={BATCH} {cin}->{cout} at {h}x{w}: max|err| vs "
+                f"plain {err:.3e}; from the f64 stage: K6 {d['K6']:.3e}, "
+                f"plain {d['plain']:.3e}, module {d['module']:.3e}; "
+                f"{ms:.3f} ms (plain {plain_ms:.3f}, module stage "
+                f"{lib_ms:.3f}), bound {bound:.3f} ms (operations), share "
+                f"{bound / ms:.3f}{'' if stage_ok else ': FAILED'}")
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bound)):
+                tot[k] += v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["f64_err"] = max(tot["f64_err"], d["K6"])
+            tot["library_f64_err"] = max(tot["library_f64_err"],
+                                         d["module"])
+            x = got.permute(0, 3, 1, 2)
+            del xs
+            torch.cuda.empty_cache()
+    log(f"  K6 three stages N={BATCH}: {tot['ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.3f} ms, share {tot['bound_ms'] / tot['ms']:.3f};"
+        f" module stages {tot['library_ms']:.3f} ms")
+    if not ok:
+        raise AssertionError("K6 disagrees with its plain version or is "
+                             "further from f64 than cuDNN's f32")
+    return dict(tot, bound_by="operations")
+
+
 def crop_batches(video, seed):
     """Two K3 batches of RETRAIN.BATCH_SIZE crops from the video's frames,
     their dst->src matrices drawn by train_sample_geometry: "train" with
@@ -1192,7 +1287,8 @@ def phase_main_path(video, seed):
         torch.cuda.synchronize()
         counts[mode] = {k.__name__: k.launches for k in KERNELS}
         log(f"main path {mode}: launches {counts[mode]}")
-        check_scoring_launches(counts[mode], mode)
+        check_scoring_launches(counts[mode], mode,
+                               3 * -(-n // BATCH) if mode == "f32" else 0)
         check_outputs(res, n)
         times = []
         for _ in range(3):
@@ -1227,11 +1323,17 @@ def phase_main_path(video, seed):
     return counts, rates, model, ae, results["f32"]["heatmaps"]
 
 
-def check_scoring_launches(counts, what):
+def check_scoring_launches(counts, what, k6):
+    """K1, K2 and K3 each launched, and K6 `k6` times (3 a chunk of an
+    f32 SimplePose pass: its three deconvolution stages; 0 in bf16)."""
     if counts["fused_bottleneck_chain"] == 0 \
             or counts["fused_postprocess"] == 0 \
             or counts["rot_warp_crop"] == 0:
         raise AssertionError(f"{what}: a kernel of the path never ran")
+    if counts["subpixel_deconv4x4"] != k6:
+        raise AssertionError(f"{what}: K6 launched "
+                             f"{counts['subpixel_deconv4x4']} times, want "
+                             f"{k6}")
 
 
 def profile_call(fn, label, top=12, show=("rot_warp", "heatmap_postprocess")):
@@ -1461,7 +1563,7 @@ def phase_retrain(video, model, ae, hm_before, seed):
     res = engine.score(*video.args)
     torch.cuda.synchronize()
     rescore = {k.__name__: k.launches for k in KERNELS}
-    check_scoring_launches(rescore, "rescoring")
+    check_scoring_launches(rescore, "rescoring", 3 * -(-n // BATCH))
     check_outputs(res, n)
     change = (res["heatmaps"] - hm_before).abs().max().item()
     log(f"rescoring f32 on the retrained weights: launches {rescore}, "
@@ -1579,10 +1681,12 @@ def coreset_gaps(args, kw, picks, ref):
 def fold_check(model, video, n=16, label="AL loop"):
     """A SimplePose's or FastPose's weights (phase 5: the retrained ones)
     on the first n samples' scoring crops, in eval
-    mode, four ways: through K1 (and FastPose's DUCs through K5); through
-    K1's plain version (the same folded operands, f32 products on cuDNN);
-    through the unfused cuDNN graph in f32 (eager DUCs); and, as the exact
-    forward, through the unfused graph in f64 on the CPU.  The bars:
+    mode, four ways: through K1 (and SimplePose's deconvolution stages
+    through K6, FastPose's DUCs through K5); through K1's and K6's plain
+    versions (the same folded operands, f32 products on cuDNN); through
+    the unfused cuDNN graph in f32 (the module graph's head); and, as the
+    exact forward, through the unfused graph in f64 on the CPU.  The
+    bars:
       - the fold: K1's plain version against the unfused graph at the
         backbone's output (the chain's output) within K1's f32 bar of
         phase 2, 1e-4 of the max (a stale fold or a stale copy of the
@@ -1591,11 +1695,13 @@ def fold_check(model, video, n=16, label="AL loop"):
       - K1's precision (fault C1, repaired by promotion): K1's distance
         from the f64 forward, max|err| / max, at most twice cuDNN's
         unfused f32 distance, at the backbone and at the heatmaps (there
-        with K5's, which computes as K1 does).
+        with K6's or K5's, which compute as K1 does).
     K1 against the unfused graph at the heatmaps is printed beside them."""
     import torch
     import vatl4pose_tpu_torch.models.resnet as resnet_mod
-    from vatl4pose_tpu_torch.kernels import bottleneck_chain_reference
+    import vatl4pose_tpu_torch.models.simplepose as simplepose_mod
+    from vatl4pose_tpu_torch.kernels import (bottleneck_chain_reference,
+                                             subpixel_deconv4x4_reference)
     from vatl4pose_tpu_torch.models.layers import DUC
     from vatl4pose_tpu_torch.ops import crop_batch
     d = video.data
@@ -1604,6 +1710,8 @@ def fold_check(model, video, n=16, label="AL loop"):
     exact = copy.deepcopy(model).double().cpu().eval()
     ducs = [m for m in model.modules() if isinstance(m, DUC)]
     kernel = resnet_mod.fused_bottleneck_chain
+    k6 = simplepose_mod.subpixel_deconv4x4
+    head_fused = hasattr(model, "fused_eval")   # SimplePose's K6 head
     was_training = model.training
     model.eval()
     out = {}
@@ -1614,17 +1722,25 @@ def fold_check(model, video, n=16, label="AL loop"):
                               ("unfused", model, crops),
                               ("f64", exact, crops.double().cpu())):
                 m.preact.fused_eval = key.startswith("K1")
+                if head_fused:
+                    m.fused_eval = key.startswith("K1")
                 for duc in ducs:
                     duc.fused_eval = key.startswith("K1")
                 resnet_mod.fused_bottleneck_chain = \
                     bottleneck_chain_reference if key == "K1 plain" \
                     else kernel
+                simplepose_mod.subpixel_deconv4x4 = \
+                    subpixel_deconv4x4_reference if key == "K1 plain" \
+                    else k6
                 feat = m.preact(x)
                 out[key] = {"backbone": feat.double().cpu(),
                             "heatmaps": m.head(feat).double().cpu()}
     finally:
         resnet_mod.fused_bottleneck_chain = kernel
+        simplepose_mod.subpixel_deconv4x4 = k6
         model.preact.fused_eval = True
+        if head_fused:
+            model.fused_eval = True
         for duc in ducs:
             duc.fused_eval = True
         model.train(was_training)
@@ -1635,6 +1751,11 @@ def fold_check(model, video, n=16, label="AL loop"):
     res = {"fold": rel("K1 plain", "unfused", "backbone"),
            "k1": rel("K1", "unfused", "heatmaps")}
     ok = res["fold"] <= 1e-4
+    if head_fused:
+        # the head's fold: K6's plain version (its BNs folded) against the
+        # module graph at the heatmaps, the same bar
+        res["fold_head"] = rel("K1 plain", "unfused", "heatmaps")
+        ok = ok and res["fold_head"] <= 1e-4
     for what in ("backbone", "heatmaps"):
         d = res[f"{what}_vs_f64"] = {k: rel(k, "f64", what)
                                      for k in ("K1", "K1 plain", "unfused")}
@@ -1646,7 +1767,9 @@ def fold_check(model, video, n=16, label="AL loop"):
             "2x unfused)")
     res["ok"] = ok
     log(f"{label}: the fold (K1's plain version vs unfused, backbone) "
-        f"{res['fold']:.3e} (bar 1e-4); K1 vs unfused, heatmaps "
+        f"{res['fold']:.3e}, the head's (K6's, heatmaps) "
+        f"{res.get('fold_head', float('nan')):.3e} (bar 1e-4 each); K1 "
+        f"vs unfused, heatmaps "
         f"{res['k1']:.3e}: {'ok' if res['ok'] else 'FAILED'}")
     return res
 
@@ -1887,7 +2010,8 @@ def phase_al_loop(video, card, seed, speedup=False):
     passes, steps = calls.score_calls, calls.train_steps
     want = {"fused_bottleneck_chain": 4 * passes, "fused_postprocess": passes,
             "rot_warp_crop": passes + steps,
-            "deform_im2col": 0, "shuffle_conv3x3": 0}
+            "deform_im2col": 0, "shuffle_conv3x3": 0,
+            "subpixel_deconv4x4": 0 if speedup else 3 * passes}
     dt = "bf16" if speedup else "f32"
     want_dtype = {"fused_bottleneck_chain": {dt: 4 * passes},
                   "rot_warp_crop": {dt: passes + steps}}
@@ -2101,7 +2225,8 @@ def phase_streaming_loop(card, seed):
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * chunks * passes,
                 "fused_postprocess": chunks * passes, "rot_warp_crop": 0,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 3 * chunks * passes}
         log(f"{label}: {n} samples, {chunks} chunks of {al.engine.chunk}, "
             f"frames {al.frame_store.total_bytes / 2 ** 30:.3f} GiB over "
             f"the budget {STREAM_BUDGET_GB} GiB; launches by kernel and "
@@ -2489,8 +2614,11 @@ def phase_c1_loop(card, seed):
             out[name] = {"same_by_round": same, "round0_score_dist": dist}
             log(f"C1 ({setting}): {name} vs CPU, query lists equal by round "
                 f"{same}; round-0 scores max|diff|/max {dist}")
-        if runs["card"][1]["fused_bottleneck_chain"] == 0:
-            failed.append(f"{setting}: K1 never ran in the card's loop")
+        if runs["card"][1]["fused_bottleneck_chain"] == 0 \
+                or 4 * runs["card"][1]["subpixel_deconv4x4"] \
+                != 3 * runs["card"][1]["fused_bottleneck_chain"]:
+            failed.append(f"{setting}: K1 never ran in the card's loop, or "
+                          f"K6 not 3 a pass: {runs['card'][1]}")
         spread = {k: max(out[name]["round0_score_dist"][k]
                          for name, _ in variants[1:] if name != "CPU")
                   for k in cpu0}
@@ -2567,7 +2695,8 @@ def phase_other_scoring(video, seed):
         counts = {k.__name__: k.launches for k in KERNELS}
         want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
                 "rot_warp_crop": 1,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 3}
         if counts != want:
             failed.append(f"{u}: launches {counts}, want {want}")
         unc = res["unc"]
@@ -2678,7 +2807,8 @@ def phase_other_loops(video, card, seed):
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * passes,
                 "fused_postprocess": passes, "rot_warp_crop": passes + steps,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 3 * passes}
         want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
                       "rot_warp_crop": {"f32": passes + steps}}
         if passes != rounds + 1 or steps == 0 or counts != want \
@@ -2747,7 +2877,9 @@ def phase_study(video, seed):
             or not all(math.isfinite(v) for _, _, v in hist) \
             or 0 in (counts["fused_bottleneck_chain"],
                      counts["fused_postprocess"], counts["rot_warp_crop"]) \
-            or counts["deform_im2col"] or counts["shuffle_conv3x3"]:
+            or counts["deform_im2col"] or counts["shuffle_conv3x3"] \
+            or 4 * counts["subpixel_deconv4x4"] \
+            != 3 * counts["fused_bottleneck_chain"]:
         raise AssertionError(f"study: {hist}, launches {counts}")
     return {"wall_s": wall, "trials": [[p, v] for _, p, v in hist],
             "best_value": study.best_value, "best_params": study.best_params,
@@ -2819,7 +2951,8 @@ def phase_zoo_passes(video, seed):
         k5 = 2 * -(-n // BATCH) if k1 else 0
         want = {"fused_bottleneck_chain": k1, "fused_postprocess": 1,
                 "rot_warp_crop": 1,
-                "deform_im2col": 0, "shuffle_conv3x3": k5}
+                "deform_im2col": 0, "shuffle_conv3x3": k5,
+                "subpixel_deconv4x4": 0}
         r, hms = {}, {}
         for mode in ("f32", "bf16"):
             engine = ScoringEngine(model, ScoringConfig(
@@ -2916,7 +3049,8 @@ def phase_zoo_retrain(video, seed):
             f"and acc by epoch {curve}, launches {counts}")
         want = {"fused_bottleneck_chain": 0, "fused_postprocess": 0,
                 "rot_warp_crop": steps,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 0}
         if counts != want or not np.isfinite(curve).all():
             raise AssertionError(f"{label} retrain: launches {counts}, want "
                                  f"{want}; curve {curve}")
@@ -2955,7 +3089,8 @@ def phase_hrnet_loop(video, card, seed):
     passes, steps = calls.score_calls, calls.train_steps
     want = {"fused_bottleneck_chain": 0, "fused_postprocess": passes,
             "rot_warp_crop": passes + steps,
-            "deform_im2col": 0, "shuffle_conv3x3": 0}
+            "deform_im2col": 0, "shuffle_conv3x3": 0,
+            "subpixel_deconv4x4": 0}
     want_dtype = {"fused_bottleneck_chain": {},
                   "rot_warp_crop": {"f32": passes + steps}}
     if passes != rounds + 1 or steps == 0 or counts != want \
@@ -3111,7 +3246,7 @@ def phase_fastpose_dcn(video, seed):
     check_outputs(res, n)
     want = {"fused_bottleneck_chain": chunks, "fused_postprocess": 1,
             "rot_warp_crop": 1, "deform_im2col": DCN_CONVS * chunks,
-            "shuffle_conv3x3": 2 * chunks}
+            "shuffle_conv3x3": 2 * chunks, "subpixel_deconv4x4": 0}
     log(f"Fast Pose (DCN) scoring f32, chunks of {BATCH}: launches {counts} "
         f"(want {want})")
     if counts != want:
@@ -3394,7 +3529,8 @@ def phase_pretraining(video, card, seed, init_state=None):
                           f"{steps} steps and {len(passes)} passes")
         want_pass = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
                      "rot_warp_crop": 1,
-                     "deform_im2col": 0, "shuffle_conv3x3": 0}
+                     "deform_im2col": 0, "shuffle_conv3x3": 0,
+                     "subpixel_deconv4x4": 3}
         if not passes or any(p["launches"] != want_pass for p in passes):
             failed.append(f"validate_gt launches "
                           f"{[p['launches'] for p in passes]}")
@@ -3721,7 +3857,8 @@ def phase_vis_loop(video, card, seed, al):
         passes, steps = calls.score_calls, calls.train_steps
         want = {"fused_bottleneck_chain": 4 * passes,
                 "fused_postprocess": passes, "rot_warp_crop": passes + steps,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 3 * passes}
         want_dtype = {"fused_bottleneck_chain": {"f32": 4 * passes},
                       "rot_warp_crop": {"f32": passes + steps}}
         if passes != rounds + 1 or steps == 0 or counts != want \
@@ -3837,7 +3974,8 @@ def phase_vis_hooks(video, seed):
     res = engine.score(*video.args, keep_heatmaps=True)
     torch.cuda.synchronize()
     counts = {k.__name__: k.launches for k in KERNELS}
-    check_scoring_launches(counts, "the hooks' pass")
+    check_scoring_launches(counts, "the hooks' pass",
+                           3 * -(-len(d) // BATCH))
     failed = []
     t0 = time.perf_counter()
     thc = vis_thc_inputs(res["heatmaps"], cfg.eval_joints, d.is_prev,
@@ -4421,7 +4559,8 @@ def phase_dp_steps(video, card, seed):
         failed += f
         want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
                 "rot_warp_crop": 1,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 3}
         if r["pass_launches"] != want:
             failed.append(f"rank {i} pass launches {r['pass_launches']}")
     rate = n / (r0["pass_ms"] / 1e3)
@@ -4707,7 +4846,8 @@ def phase_dp_loop(video, seed, card, round0):
         p, s = r["passes"], r["steps"]
         want = {"fused_bottleneck_chain": 4 * p, "fused_postprocess": p,
                 "rot_warp_crop": p + s,
-                "deform_im2col": 0, "shuffle_conv3x3": 0}
+                "deform_im2col": 0, "shuffle_conv3x3": 0,
+                "subpixel_deconv4x4": 3 * p}
         if p != rounds + 1 or s == 0 or r["launches"] != want:
             failed.append(f"rank {r['rank']}: launches {r['launches']}, "
                           f"want {want}")
@@ -5108,7 +5248,8 @@ def phase_entry_main(card, seed, vis=False, video_root=None):
     passes, steps = calls.score_calls, calls.train_steps
     want_n = {"fused_bottleneck_chain": 4 * passes,
               "fused_postprocess": passes, "rot_warp_crop": passes + steps,
-              "deform_im2col": 0, "shuffle_conv3x3": 0}
+              "deform_im2col": 0, "shuffle_conv3x3": 0,
+              "subpixel_deconv4x4": 3 * passes}
     if passes != rounds + 1 or steps == 0 or counts != want_n:
         failed.append(f"launches {counts}, want {want_n} for {passes} "
                       f"passes and {steps} steps")
@@ -5284,7 +5425,8 @@ def phase_library_tail(video, seed, card):
     bit = torch.equal(passes["before the save"], passes["reloaded"])
     want = {"fused_bottleneck_chain": 4, "fused_postprocess": 1,
             "rot_warp_crop": 1,
-            "deform_im2col": 0, "shuffle_conv3x3": 0}
+            "deform_im2col": 0, "shuffle_conv3x3": 0,
+            "subpixel_deconv4x4": 3}
     log(f"library tail reload: THC+WPU pass of {len(video.data)} with the "
         f"reloaded weights, heatmaps bit-identical to the pass before the "
         f"save {bit}; launches {counts} (want {want})")
@@ -5364,6 +5506,7 @@ def main(argv=None):
           "bf16": phase_chain_kernel(torch.bfloat16, gen)}
     k2 = phase_postprocess_kernel(gen)
     k3 = phase_rot_warp_kernel(video, seed)
+    k6 = phase_deconv_kernel(gen)
     phase("phase 3: scoring path")
     counts, rates, model, ae, hm_f32 = phase_main_path(video, seed)
     phase("phase 4: training path")
@@ -5582,6 +5725,23 @@ def main(argv=None):
         "ms": dcn["k4_ms"], "plain_ms": dcn["eager_ms"],
         "bound_ms": dcn["bound_ms"], "bound_by": "bytes",
         "library_ms": None})
+    # K6 on every f32 SimplePose pass (3 a chunk); ms and bound over the
+    # three deconvolution stages of a chunk of 512
+    k6_launches = {"scoring_f32": counts["f32"]["subpixel_deconv4x4"],
+                   "al_loop": al_n["subpixel_deconv4x4"],
+                   "al_loop_streaming": st_n["subpixel_deconv4x4"],
+                   "c1_loop": c1_n["subpixel_deconv4x4"],
+                   **{k: v["subpixel_deconv4x4"] for k, v in other_n.items()
+                      if v.get("subpixel_deconv4x4")}}
+    kernels.append({
+        "name": "subpixel_deconv4x4_f32", "route": "cuda",
+        "source": "vatl4pose_tpu_torch/csrc/fused_bottleneck.cu",
+        "replaces": "vatl4pose_tpu/models/simplepose.py (no pallas_call)",
+        "launches": sum(k6_launches.values()),
+        "launches_by_path": k6_launches,
+        "max_abs_err": k6["max_abs_err"], "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+        "bound_by": k6["bound_by"], "library_ms": k6["library_ms"]})
     log(json.dumps({"scoring_samples_per_s": rates, "retrain": train,
                     "al_loop": al, "al_loop_speedup": al_bf16,
                     "al_loop_streaming": stream, "c1_loop": c1,
@@ -5598,6 +5758,9 @@ def main(argv=None):
                     "k1_unfused_floor_ms": {m: k1[m]["floor_ms"] for m in k1},
                     "k1_cudnn_chain_ms": {m: k1[m]["cudnn_ms"] for m in k1},
                     "k2_wrapper_ms": k2["wrapper_ms"], "k3": k3,
+                    "k6_f32_from_f64": {
+                        "stages_max": k6["f64_err"],
+                        "module_stages_max": k6["library_f64_err"]},
                     "card": card, "wall_s": time.perf_counter() - t_run}))
     print(json.dumps({"host_warp": dict(
         stream["host_warp"], source="native/warp/warp_affine.cpp",

@@ -96,6 +96,29 @@
 //     short sums read 2.1e-7.  Its 64 more floats a thread spill (about a
 //     sixth more time than one sum); ptxas ignored setmaxnreg here.
 //
+// K6 (subpixel_deconv4x4_kernel): SimplePose's deconvolution stage,
+// relu(conv_transpose4x4(x, w, stride 2, pad 1) * s + b) with eval BN
+// folded, x (N, H, W, Cin) -> out (N, 2H, 2W, Cout), f32.  It replaces no
+// TPU kernel: the JAX package leaves the head to XLA.  Such a transposed
+// convolution is a sub-pixel convolution: output phase (i, j), out[n, 2h +
+// i, 2w + j], reads only the 2x2 input taps (h + dy, w + dx), dy in
+// {i - 1, i}, dx in {j - 1, j}, tap (dy, dx) with kernel element (1 + i -
+// 2 dy, 1 + j - 2 dx).  Bound: 2*N*H*W*Cin*Cout*16 FLOPs in three TF32
+// products at 495 TFLOP/s (8.7 ms for the three stages of a chunk of 512
+// of SimplePose-R50 at 256x192); its bytes are under 1 ms.  Design: K5
+// with "Cout" 4 Cout (SUBPIXEL): column q * Cout + c is channel c of
+// phase q = 2i + j, so a tile of 128 columns is one phase (Cout a multiple
+// of 128), and the K loop runs over that phase's 4 taps only, K = 4 Cin
+// (a 3x3 with its five zero taps would do 2.25 times the work); the
+// producer takes (dy, dx) from the tile's phase and the tap.
+// deconv4x4_split_kernel lays B out (4 Cout, 4, Cin), split as K1's.  The
+// epilogue is K5's shuffled store, which with C4 = Cout stores out[n, 2h +
+// i, 2w + j, c].  Each tap is summed apart (TAP_SUMS) as in K5: at the
+// three stages of SimplePose-R50 at N = 512, on the benchmark's seeded
+// weights, one running sum over 4 Cin / 8 promotions sat 1.2-1.5x
+// further from an f64 stage than cuDNN's f32 dgrad engine, the tap sums
+// 0.42-0.68x, for about a sixth more time.
+//
 // Weight layouts (K-major): w1t (nb, P, C), w2t (nb, P, 9, P) with
 // k = tap*P + ci, w3t (nb, C, P) in the stream dtype, laid out by the
 // wrapper in bf16 and, with their lo halves, by k_major_split_f32 in f32;
@@ -524,9 +547,15 @@ __device__ __forceinline__ void store_out(const float* y,
 // summed apart and each tap's sum is added to acc at its end, two short
 // f32 sums in place of one over all 9 * Cin / 8 k-steps (its 64 floats
 // are more than a thread of 384 has: ptxas spills about 56 of them).
-// The body of conv_gemm_kernel (K1) and shuffle_conv3x3_kernel (K5).
+// SUBPIXEL (with CONV3 and SHUFFLE): the 2x2 taps of one output phase of
+// a 4x4 stride-2 transposed convolution in place of the 3x3 window: b_map
+// is (Cin, 4, Cout, 1), the tile's phase is q = n0 / (Cout / 4), and tap
+// t reads the input pixel (h + (q >> 1) - 1 + (t >> 1), w + (q & 1) - 1 +
+// (t & 1)).
+// The body of conv_gemm_kernel (K1), shuffle_conv3x3_kernel (K5) and
+// subpixel_deconv4x4_kernel (K6).
 template <typename T, int BN, bool CONV3, bool RESIDUAL, bool SHUFFLE,
-          bool TAP_SUMS>
+          bool TAP_SUMS, bool SUBPIXEL = false>
 __device__ __forceinline__ void conv_gemm(
     const CUtensorMap& a_map, const CUtensorMap& b_map,
     const CUtensorMap& b_lo_map, const T* __restrict__ in,
@@ -544,7 +573,7 @@ __device__ __forceinline__ void conv_gemm(
   const int n0 = (blockIdx.x % n_tiles) * BN;   // the N tiles of one M
   const int m0 = (blockIdx.x / n_tiles) * BM;   // tile run side by side
   const int kblocks = (Cin + KB - 1) / KB;      // K steps per tap
-  const int nk = CONV3 ? 9 * kblocks : kblocks;
+  const int nk = CONV3 ? (SUBPIXEL ? 4 : 9) * kblocks : kblocks;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -590,6 +619,8 @@ __device__ __forceinline__ void conv_gemm(
         pos[i] = -1;
       }
     }
+    // SUBPIXEL: the output phase of the tile's columns
+    const int phase = SUBPIXEL ? n0 / (Cout / 4) : 0;
     for (int kb = 0; kb < nk; ++kb) {
       const int s = kb % S;
       if (Cfg<T>::SPLIT && kb > 0) {
@@ -611,7 +642,8 @@ __device__ __forceinline__ void conv_gemm(
           tma_load_4d(TL::b_lo(a_dst), &b_lo_map, &full[s], c0, tap, n0,
                       blk);
       }
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const int dy = SUBPIXEL ? (phase >> 1) - 1 + (tap >> 1) : tap / 3 - 1;
+      const int dx = SUBPIXEL ? (phase & 1) - 1 + (tap & 1) : tap % 3 - 1;
       const int c = c0 + chunk * VEC;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -809,6 +841,22 @@ __global__ void __launch_bounds__(THREADS, 1)
       Cout, 0);
 }
 
+// K6: relu(conv_transpose4x4(x, w, stride 2, pad 1) * s + b) of an
+// (N, H, W, Cin) f32 stream, into (N, 2H, 2W, Cout / 4); B (Cout, 4, Cin)
+// and s, b in the column order of deconv4x4_split_kernel (here Cout is
+// four times the layer's); each tap summed apart, as in K5
+__global__ void __launch_bounds__(THREADS, 1)
+    subpixel_deconv4x4_kernel(const __grid_constant__ CUtensorMap b_map,
+                              const __grid_constant__ CUtensorMap b_lo_map,
+                              const float* __restrict__ in,
+                              const float* __restrict__ scale,
+                              const float* __restrict__ bias, float* out,
+                              int M, int H, int W, int Cin, int Cout) {
+  conv_gemm<float, 128, true, false, true, true, true>(
+      b_map, b_map, b_lo_map, in, scale, bias, nullptr, out, M, H, W, Cin,
+      Cout, 0);
+}
+
 // One batched transpose of the f32 weights: `batch` matrices of rows x
 // cols, each contiguous in src; matrix q lands transposed, split into hi
 // and lo, at (q / taps) * taps * rows * cols + (q % taps) * rows, its rows
@@ -892,6 +940,47 @@ __global__ void __launch_bounds__(256)
     lo[(int64_t)n * K + k] = l;
   }
   if (threadIdx.x == 0) sp[n] = s[oc], bp[n] = b[oc];
+}
+
+// K6's B operand and epilogue constants in one launch: w (Cin, Cout, 4, 4)
+// as torch keeps a ConvTranspose2d's weight -> (4 Cout, 4, Cin), row n =
+// q * Cout + c (channel c of phase q = 2i + j), k = t * Cin + ci (tap t =
+// 2a + b: the input pixel (h + i - 1 + a, w + j - 1 + b)), holding
+// w[ci, c, 3 - i - 2a, 3 - j - 2b], split into hi and lo; s, b once for
+// each phase.  A block: 32 input x 8 output channels, read along torch's
+// rows (8 x 16 contiguous floats an input channel) into shared memory and
+// written along K (32 input channels a row).
+__global__ void __launch_bounds__(256)
+    deconv4x4_split_kernel(const float* __restrict__ w,
+                           const float* __restrict__ s,
+                           const float* __restrict__ b, float* hi, float* lo,
+                           float* sp, float* bp, int Cin, int Cout) {
+  __shared__ float tile[32][8 * 16 + 1];
+  const int ci0 = blockIdx.x * 32, c0 = blockIdx.y * 8;
+  for (int i = threadIdx.x; i < 32 * 128; i += 256) {
+    const int r = i >> 7, e = i & 127;
+    if (ci0 + r < Cin)
+      tile[r][e] = w[((int64_t)(ci0 + r) * Cout + c0) * 16 + e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * 128; i += 256) {
+    // r: the input channel (fastest), then the tap t, phase q, channel cl
+    const int r = i & 31, t = (i >> 5) & 3, q = (i >> 7) & 3, cl = i >> 9;
+    if (ci0 + r >= Cin) continue;
+    const int ky = 3 - (q >> 1) - 2 * (t >> 1);
+    const int kx = 3 - (q & 1) - 2 * (t & 1);
+    float h, l;
+    split(tile[r][cl * 16 + ky * 4 + kx], h, l);
+    const int64_t o =
+        ((int64_t)(q * Cout + c0 + cl) * 4 + t) * Cin + ci0 + r;
+    hi[o] = h;
+    lo[o] = l;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    const int cl = threadIdx.x & 7, q = threadIdx.x >> 3;
+    sp[q * Cout + c0 + cl] = s[c0 + cl];
+    bp[q * Cout + c0 + cl] = b[c0 + cl];
+  }
 }
 
 // --------------------------------------------------------------- host ----
@@ -1127,5 +1216,50 @@ extern "C" int shuffle_conv3x3_f32(const void* x, const void* whi,
                            (cudaStream_t)stream>>>(
       hi, lo, (const float*)x, (const float*)sp, (const float*)bp,
       (float*)out, M, H, W, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+// K6's operands as the wrapper takes them: w (Cin, Cout, 4, 4), s and b
+// (Cout); out: w_hi, w_lo (4 Cout, 4, Cin) and s, b (4 Cout) in the
+// kernel's column order.  Cout a multiple of 8.
+extern "C" int deconv4x4_split_f32(const void* w, const void* s,
+                                   const void* b, void* whi, void* wlo,
+                                   void* sp, void* bp, int Cin, int Cout,
+                                   void* stream) {
+  const dim3 grid((Cin + 31) / 32, Cout / 8);
+  deconv4x4_split_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)w, (const float*)s, (const float*)b, (float*)whi,
+      (float*)wlo, (float*)sp, (float*)bp, Cin, Cout);
+  return (int)cudaGetLastError();
+}
+
+// K6: x (N, H, W, Cin) -> out (N, 2H, 2W, Cout), both f32 NHWC; whi, wlo,
+// sp, bp as deconv4x4_split_f32 makes them; Cout a multiple of 128, so
+// that a column tile is one output phase
+extern "C" int subpixel_deconv4x4_f32(const void* x, const void* whi,
+                                      const void* wlo, const void* sp,
+                                      const void* bp, void* out, int N,
+                                      int H, int W, int Cin, int Cout,
+                                      void* stream) {
+  const cuuint64_t e = sizeof(float);
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, 4, 4 * (cuuint64_t)Cout, 1};
+  const cuuint64_t strides[3] = {Cin * e, 4 * Cin * e,
+                                 (cuuint64_t)16 * Cin * Cout * e};
+  const cuuint32_t box[4] = {ROW_BYTES / sizeof(float), 1, 128, 1};
+  CUtensorMap hi, lo;
+  if (!encode<float>(&hi, whi, 4, dims, strides, box) ||
+      !encode<float>(&lo, wlo, 4, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Tile<float, 128>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(subpixel_deconv4x4_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int M = N * H * W;
+  const long long tiles = (long long)((M + BM - 1) / BM) * (4 * Cout / 128);
+  subpixel_deconv4x4_kernel<<<(unsigned)tiles, THREADS, smem,
+                              (cudaStream_t)stream>>>(
+      hi, lo, (const float*)x, (const float*)sp, (const float*)bp,
+      (float*)out, M, H, W, Cin, 4 * Cout);
   return (int)cudaGetLastError();
 }

@@ -40,6 +40,8 @@ SIGNATURES = {
         "k_major_split_f32": [_P] * 9 + [_I] * 3 + [_P],
         "shuffle_split_f32": [_P] * 7 + [_I] * 2 + [_P],
         "shuffle_conv3x3_f32": [_P] * 6 + [_I] * 5 + [_P],
+        "deconv4x4_split_f32": [_P] * 7 + [_I] * 2 + [_P],
+        "subpixel_deconv4x4_f32": [_P] * 6 + [_I] * 5 + [_P],
     },
     "postprocess": {
         "heatmap_postprocess_f32": [_P] * 4 + [_I] * 4 + [_P],

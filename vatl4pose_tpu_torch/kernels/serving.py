@@ -3,12 +3,13 @@ hand-written kernel, or the module graph that autograd and every dtype
 run.
 
 The served modules are the ResNet's bottleneck tails (K1,
-models/resnet.py), a deformable 3x3 (K4, `deform_conv.DeformConv2d`) and
-a DUC (K5, models/layers.py).  Each asks `takes_kernel` and adds only
-what its kernel's shapes need (a stage with a tail that is not
-deformable; upscale 2).  The kernels write into buffers of their own, so
-their outputs carry no autograd graph: a forward that asks for a
-gradient never takes them.
+models/resnet.py), a deformable 3x3 (K4, `deform_conv.DeformConv2d`), a
+DUC (K5, models/layers.py) and SimplePose's deconvolution head (K6,
+models/simplepose.py).  Each asks `takes_kernel` and adds only what its
+kernel's shapes need (a stage with a tail that is not deformable;
+upscale 2; 4x4/2/1 transposed convolutions, `deconv.deconv_takes`).
+The kernels write into buffers of their own, so their outputs carry no
+autograd graph: a forward that asks for a gradient never takes them.
 """
 
 from __future__ import annotations

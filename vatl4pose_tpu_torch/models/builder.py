@@ -8,8 +8,9 @@ raises the registry's KeyError.
 One nn.Module serves both modes, so there is no `train` argument: train()
 runs the exact module graph; with `fused_eval=True`, an eval forward that
 asks for no gradient takes the hand kernels where kernels/serving.py's
-rule gives them (SimplePose's and FastPose's bottleneck tails, FastPose's
-deformable 3x3s and DUCs); HRNet ignores `fused_eval`.
+rule gives them (SimplePose's and FastPose's bottleneck tails,
+SimplePose's deconvolution head, FastPose's deformable 3x3s and DUCs);
+HRNet ignores `fused_eval`.
 """
 
 from __future__ import annotations
