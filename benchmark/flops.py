@@ -2,7 +2,9 @@
 counted from its layer shapes: the plain reference model is run on the
 meta device (shapes only, no arithmetic) at the configuration's input
 size, and every convolution, transposed convolution and linear layer adds
-2 FLOPs per multiply-add.  Normalisation, activations, pooling and sums
+2 FLOPs per multiply-add, as does each attention call's two products, q kᵀ
+and the probabilities times v (4·N·H·Lq·Lk·dh FLOPs).  Normalisation
+(attention's softmax and scale with it), activations, pooling and sums
 are left out (under 1% of a ResNet-50's or an HRNet-W32's)."""
 
 from __future__ import annotations
@@ -10,9 +12,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from benchmark.reference.layers import Attention
 from benchmark.reference.models import build_estimator
 
-__all__ = ["layer_macs", "count_flops", "forward_flops"]
+__all__ = ["layer_macs", "attention_macs", "count_flops", "forward_flops"]
 
 
 def layer_macs(module, x, y) -> int:
@@ -31,16 +34,26 @@ def layer_macs(module, x, y) -> int:
     return 0
 
 
+def attention_macs(q, k) -> int:
+    """Multiply-adds of one attention call on queries `q` (N, H, Lq, dh)
+    and keys `k` (N, H, Lk, dh): q kᵀ, then the probabilities times v (of
+    width dh), N·H·Lq·Lk·dh each."""
+    return 2 * q.numel() * k.shape[-2]
+
+
 def count_flops(model, x) -> float:
     """FLOPs of one call `model(x)` (2 a multiply-add of its
-    convolutions, transposed convolutions and linear layers)."""
+    convolutions, transposed convolutions, linear layers and attention
+    products)."""
     total = [0]
 
     def hook(m, inp, out):
-        total[0] += layer_macs(m, inp[0], out)
+        total[0] += attention_macs(inp[0], inp[1]) \
+            if isinstance(m, Attention) else layer_macs(m, inp[0], out)
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
+               if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                                 Attention))]
     try:
         with torch.no_grad():
             model(x)

@@ -1,10 +1,12 @@
 """Layers of the plain reference models: torch's own Conv2d,
-ConvTranspose2d, Linear and BatchNorm2d, in float32, with one switch per
+ConvTranspose2d, Linear, BatchNorm2d and LayerNorm, and an attention
+product of plain `matmul` and `softmax`, in float32, with one switch per
 layer instance for the control's lower precision.
 
 `tf32 = True` on a layer emulates a TF32 tensor-core product: the inputs
 of the product (activation and weight in the forward pass, the incoming
-gradient in the backward pass) are rounded to TF32's 10-bit mantissa,
+gradient in the backward pass; for attention both products' operands)
+are rounded to TF32's 10-bit mantissa,
 to nearest with ties away from zero as `cvt.rna.tf32.f32` does, and the
 sums stay float32.  The emulation runs alike on the CPU and the card, so
 the control reads the same on both.  The real TF32 flags of torch stay
@@ -18,7 +20,7 @@ from torch import nn
 from torch.nn import functional as F
 
 __all__ = ["round_tf32", "Conv2d", "ConvTranspose2d", "Linear",
-           "BatchNorm2d", "set_tf32"]
+           "Attention", "BatchNorm2d", "LayerNorm", "set_tf32"]
 
 
 def round_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -80,14 +82,42 @@ class Linear(nn.Linear):
                         x, self.weight)
 
 
+_BLOCK = 512   # queries a block of `Attention`
+
+
+class Attention(nn.Module):
+    """softmax(q kᵀ / √dh) v over the last two dimensions, q (N, H, Lq, dh)
+    and k, v (N, H, Lk, dh), by plain `matmul` and `softmax` (no fused
+    kernel).  Queries go 512 at a time, so that under `no_grad`, as the
+    score reference runs, one block's scores (N·H·512·Lk floats) are all
+    that is held; under autograd every block's scores stay alive until
+    the backward pass.  Each row's softmax is over all its keys, so the
+    blocks give the whole product's rows.  No parameters."""
+
+    def forward(self, q, k, v, /):
+        scale = q.shape[-1] ** -0.5
+        out = []
+        for i in range(0, q.shape[-2], _BLOCK):
+            s = _product(self, lambda a, b: a @ b.transpose(-2, -1),
+                         q[..., i:i + _BLOCK, :], k)
+            out.append(_product(self, torch.matmul,
+                                torch.softmax(s * scale, dim=-1), v))
+        return torch.cat(out, dim=-2)
+
+
 def BatchNorm2d(ch: int) -> nn.BatchNorm2d:
     """The published BatchNorm: eps 1e-5, momentum 0.1."""
     return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
+def LayerNorm(d: int) -> nn.LayerNorm:
+    """The published LayerNorm: eps 1e-5, a gain and a bias."""
+    return nn.LayerNorm(d, eps=1e-5)
+
+
 def set_tf32(model: nn.Module, on: bool = True) -> nn.Module:
     """Every product of `model` in emulated TF32 (on) or float32."""
     for m in model.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear, Attention)):
             m.tf32 = on
     return model

@@ -1,13 +1,16 @@
 """HRNet (Sun et al., CVPR 2019) for top-down pose: a stride-4 stem,
-`layer1` of four Bottlenecks, then stages 2-4 of parallel branches whose
-outputs are summed into every branch (1x1 conv, BN and nearest upsampling
-from a lower resolution; strided 3x3 chains from a higher one), a ReLU
-after each sum, and a 1x1 convolution of the highest-resolution branch
-to the heatmaps.  Parameter names as leoxiaobin/deep-high-resolution-net
-(`transition{1,2,3}`, `stage{2,3,4}.m.branches.i.b`,
-`stage{2,3,4}.m.fuse_layers.i.j`).  Every transition reads the last
-branch, as the published code does.  The embedding is the global average
-of the highest-resolution stage-4 feature, zero-padded to 2048."""
+`layer1` of four Bottlenecks, then the stages that MODEL lists (STAGE2,
+STAGE3 and, where given, STAGE4) of parallel branches whose outputs are
+summed into every branch (1x1 conv, BN and nearest upsampling from a
+lower resolution; strided 3x3 chains from a higher one), a ReLU after
+each sum, and a 1x1 convolution of the highest-resolution branch to the
+heatmaps.  The last module of the last stage returns that branch alone,
+as the published code's `multi_scale_output=False` does.  Parameter
+names as leoxiaobin/deep-high-resolution-net (`transition{1,2,3}`,
+`stage{2,3,4}.m.branches.i.b`, `stage{2,3,4}.m.fuse_layers.i.j`).
+Every transition reads the last branch, as the published code does.  The
+embedding is the global average of the last stage's highest-resolution
+feature, zero-padded to 2048."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from ..layers import BatchNorm2d, Conv2d
 from .resnet import BasicBlock, Bottleneck
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
+STAGES = ("STAGE2", "STAGE3", "STAGE4")
 LR_MULT = {}          # one learning rate for every module
 
 
@@ -86,7 +90,9 @@ class HighResolutionModule(nn.Module):
 
 class PoseHighResolutionNet(nn.Module):
     def __init__(self, num_joints, stages, final_conv_kernel=1):
+        """`stages`: the configuration of STAGE2, STAGE3, ... in order."""
         super().__init__()
+        self.num_stages = len(stages)
         self.conv1 = Conv2d(3, 64, 3, 2, 1, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.conv2 = Conv2d(64, 64, 3, 2, 1, bias=False)
@@ -95,8 +101,7 @@ class PoseHighResolutionNet(nn.Module):
         self.layer1 = nn.Sequential(Bottleneck(64, 64, 1, ds),
                                     *(Bottleneck(256, 64) for _ in range(3)))
         pre = [256]
-        for si, key in enumerate(("STAGE2", "STAGE3", "STAGE4")):
-            s = stages[key]
+        for si, s in enumerate(stages):
             cur = [c * BLOCKS[s["BLOCK"]].expansion
                    for c in s["NUM_CHANNELS"]]
             trans = []
@@ -115,24 +120,30 @@ class PoseHighResolutionNet(nn.Module):
                 HighResolutionModule(
                     s["NUM_BRANCHES"], s["BLOCK"], s["NUM_BLOCKS"], cur,
                     s["NUM_CHANNELS"],
-                    multi_scale_output=not (key == "STAGE4" and m == n - 1))
+                    multi_scale_output=not (si == len(stages) - 1
+                                            and m == n - 1))
                 for m in range(n))))
             pre = cur
         self.final_layer = Conv2d(pre[0], num_joints, final_conv_kernel, 1,
                                   1 if final_conv_kernel == 3 else 0)
 
-    def forward(self, x, return_embedding=False):
+    def features(self, x):
+        """The last stage's highest-resolution branch."""
         x = torch.relu(self.bn1(self.conv1(x)))
         x = torch.relu(self.bn2(self.conv2(x)))
         ys = [self.layer1(x)]
-        for si in range(3):
+        for si in range(self.num_stages):
             trans = getattr(self, f"transition{si + 1}")
             xs = [ys[i] if t is None else t(ys[-1])
                   for i, t in enumerate(trans)]
             ys = getattr(self, f"stage{si + 2}")(xs)
-        hm = self.final_layer(ys[0])
+        return ys[0]
+
+    def forward(self, x, return_embedding=False):
+        f = self.features(x)
+        hm = self.final_layer(f)
         if return_embedding:
-            emb = ys[0].mean(dim=(2, 3))
+            emb = f.mean(dim=(2, 3))
             return hm, F.pad(emb, (0, max(0, 2048 - emb.shape[1])))
         return hm
 
@@ -140,5 +151,5 @@ class PoseHighResolutionNet(nn.Module):
 def build(model_cfg, preset_cfg):
     return PoseHighResolutionNet(
         preset_cfg["NUM_JOINTS"],
-        {k: model_cfg[k] for k in ("STAGE2", "STAGE3", "STAGE4")},
+        [model_cfg[k] for k in STAGES if k in model_cfg],
         model_cfg.get("FINAL_CONV_KERNEL", 1))

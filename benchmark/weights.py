@@ -6,7 +6,8 @@ He-scaled convolutions and linear layers; BN gains in [0.5, 1], or
 [0.1, 0.3] where a BN's output is summed with another branch (a
 bottleneck's bn3 and shortcut, an HRNet branch block's bn2 and its fusion
 layers), so that activations stay O(1) through the depth; BN running
-statistics near (0, 1), so that folding them matters.  The same seed
+statistics near (0, 1), so that folding them matters; LayerNorm gains in
+[0.5, 1] and biases as a BN's.  The same seed
 gives the same weights on the same device."""
 
 from __future__ import annotations
@@ -53,6 +54,11 @@ def _plan(model: nn.Module):
                      (pre + "running_mean", c, "n", 0.1, 0.0),
                      (pre + "running_var", c, "u", 1.0, 0.5),
                      (pre + "num_batches_tracked", (), "z", 0, 0)]
+            continue
+        elif isinstance(m, nn.LayerNorm):
+            c = tuple(m.normalized_shape)
+            plan += [(pre + "weight", c, "u", 0.5, 0.5),
+                     (pre + "bias", c, "n", 0.1, 0.0)]
             continue
         else:
             continue
